@@ -9,7 +9,8 @@ tested against. Modules keep the JAX package's names and layout:
   geometry, model, barriers, costs    — per-knot math and constraint prep
   solver                              — goal transform and the LQR init guess
   solver_blast                        — the batch-last solve loop
-  kernels.sweep, kernels.coststack    — CUDA kernels + plain PyTorch versions
+  kernels.sweep, kernels.coststack,
+  kernels.megasolve                   — CUDA kernels + plain PyTorch versions
   batch                               — solve_batch + metrics
   convert                             — crossing from the JAX package
 
@@ -20,7 +21,7 @@ library is compiled at first launch (kernels/_build.py).
 from . import (barriers, batch, config, convert, costs, geometry, model,
                solver, solver_blast, types)
 from .config import DEFAULT_CONFIG, PlannerConfig
-from .kernels import coststack, sweep
+from .kernels import coststack, megasolve, sweep
 from .types import SolverStatus
 
 __version__ = "0.1.0"

@@ -17,19 +17,23 @@ def solve_batch(goals, starts, cons: ConstraintSet, cfg, veh, dt,
     """Batched CILQR solve over a leading batch axis on every input.
 
     backend='blast': the batch-last solver (solver_blast.solve_batch_bl),
-    which runs the CUDA kernels for tensors on a card. 'vmap' and 'mega'
-    are not ported yet (ROADMAP.md queue 1 item 1, queue 2 item 3)."""
+    which runs the CUDA kernels for tensors on a card. backend='mega': the
+    full-solve megakernel (kernels/megasolve.py), one launch per solve on a
+    card. 'vmap' is not ported yet (ROADMAP.md queue 1 item 1)."""
     if backend == "blast":
         from .solver_blast import solve_batch_bl
 
         return solve_batch_bl(goals, starts, cons, cfg, veh, dt,
                               warm_start=warm_start)
-    if backend in ("vmap", "mega"):
+    if backend == "mega":
+        from .kernels.megasolve import solve_batch_mega
+
+        return solve_batch_mega(goals, starts, cons, cfg, veh, dt,
+                                warm_start=warm_start)
+    if backend == "vmap":
         raise NotImplementedError(
-            f"backend={backend!r} is not ported yet (ROADMAP.md: "
-            + ("queue 1, item 1, the single-problem solve"
-               if backend == "vmap" else
-               "queue 2, item 3, the solve_batch_mega kernel") + ")")
+            "backend='vmap' is not ported yet (ROADMAP.md: queue 1, item 1, "
+            "the single-problem solve)")
     raise ValueError(f"unknown backend {backend!r}")
 
 

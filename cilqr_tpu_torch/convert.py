@@ -60,11 +60,12 @@ def result_to_numpy(res: SolveResult) -> dict:
     return out
 
 
-def load_fixture(path: str = FIXTURE, dtype=torch.float32, device="cpu",
+def load_fixture(path: str = FIXTURE, dtype=torch.float32, device="cuda",
                  batch: int | None = None):
     """The solve fixture as (goals [B, N, 6], starts [B, 6], cons), with
     all-invalid padded constraint slots trimmed (exact); with ``batch``,
-    the problems are tiled up to that many lanes."""
+    the problems are tiled up to that many lanes. On the card unless
+    ``device`` says otherwise."""
     d = np.load(path)
     goals = torch.as_tensor(d["goals"], dtype=dtype, device=device)
     starts = torch.as_tensor(d["starts"], dtype=dtype, device=device)

@@ -1,4 +1,5 @@
-// Helpers shared by the solver's CUDA kernels (sweep.cu, coststack.cu).
+// Helpers shared by the solver's CUDA kernels (sweep.cu, coststack.cu,
+// megasolve.cu).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use by ``nvcc`` into one shared library
-with a plain C interface, and loaded with ``ctypes``. The library lands in
+The sources are compiled at first use by ``nvcc``, one process per source,
+all started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The library lands in
 ``cilqr_tpu_torch/_build/``, named by a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one loads at once. Nothing here
 runs at import: a machine without ``nvcc`` can import every module.
@@ -27,7 +28,7 @@ BUILD_DIR = _PKG / "_build"
 # No --use_fast_math: the solver's accept/stop thresholds are chaotic, so
 # the kernels keep IEEE division, sqrt and the accurate transcendentals.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +42,10 @@ _SIGNATURES = {
     # N, B, KC, W, D, offs (host double[D]), bt, beps, want_derivs,
     # inputs (host array of 25 device pointers), out, stream
     "corridor_lane_stack": [_I, _I, _I, _I, _I, _P, _D, _D, _I, _P, _P, _P],
+    # N, B, KC, S, D, n_alpha, max_iter, block_nb, constants, offs, alphas
+    # (host double arrays), pointers (host array of 17 device pointers),
+    # stream
+    "solve_batch_mega": [_I] * 8 + [_P] * 4 + [_P],
 }
 
 
@@ -75,14 +80,36 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+    stem = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    report, failed = [], []
+    for cmd, _, proc in procs:
+        text = proc.communicate()[0]
+        report.append(text)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{text[-4000:]}")
+    tmp = BUILD_DIR / f"{stem}.tmp.so"
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in procs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        report.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(report))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, out)
     return out
 

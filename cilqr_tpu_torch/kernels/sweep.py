@@ -9,6 +9,10 @@ rollouts from xs[0], one per alpha row, all reusing the gains. Angles are
 wrapped in the kernel's floor form x - 2pi*floor((x + pi) / 2pi), which is
 not bit-equal to geometry.normalize_angle.
 
+The plain version is the megakernel's backward pass and rollout step
+(``kernels/megasolve.py``), which compute the same functions; the kernel
+sums in another order, so the two agree to round-off, not bit for bit.
+
 ``riccati_sweep`` launches the kernel for a CUDA tensor and runs
 ``riccati_sweep_ref`` for a CPU tensor (the counterpart of the Pallas
 kernel's interpret mode).
@@ -17,63 +21,41 @@ kernel's interpret mode).
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
-from ..solver_blast import _backward_bl, mv
 from . import _build
-
-TWO_PI = 2.0 * math.pi
-
-
-def _normalize_angle(x):
-    """mod(x + pi, 2 pi) - pi in the kernel's floor form."""
-    return x - TWO_PI * torch.floor((x + math.pi) / TWO_PI)
-
-
-def _f_cont(s, u, L):
-    th = _normalize_angle(s[2])
-    dl = _normalize_angle(s[5])
-    return torch.stack([s[3] * torch.cos(th), s[3] * torch.sin(th),
-                        s[3] * torch.tan(dl) / L, s[4], u[0], u[1]])
+from .megasolve import _backward, _forward_step, _step_constants
 
 
 def _backward_ref(lam, A, Bm, Jx, Ju, Hx, Hu, us):
     """The kernel's backward pass: (Ks [T,2,6,B], ks [T,2,B], dV0, dV1,
-    gnorm). Its algebra is the solver twin's; gnorm = mean over t of
-    max over u of |k| / (|u| + 1), against the current us."""
-    Ks, ks, dV0, dV1 = _backward_bl(lam, A, Bm, Jx, Ju, Hx, Hu)
-    gnorm = (ks.abs() / (us.abs() + 1.0)).amax(1).sum(0) / us.shape[0]
-    return Ks, ks, dV0, dV1, gnorm
+    gnorm), gnorm = mean over t of max over u of |k| / (|u| + 1), against
+    the current us."""
+    return _backward(lam, A, Bm, Jx, Hx, Ju, Hu, us)
 
 
 def _forward_step_ref(x, t, alpha, Ks, ks, xs, us, dt, wheel_base):
     """One step of the kernel's closed-loop rollout from state x [6, B]:
     returns (u [2, B], next state [6, B])."""
-    u = us[t] + mv(Ks[t], x - xs[t]) + alpha * ks[t]
-    u = torch.stack([u[0], _normalize_angle(u[1])])
-    mid = x + (0.5 * dt) * _f_cont(x, u, wheel_base)
-    nxt = x + dt * _f_cont(mid, u, wheel_base)
-    return u, torch.stack([nxt[0], nxt[1], _normalize_angle(nxt[2]),
-                           nxt[3], nxt[4], _normalize_angle(nxt[5])])
+    return _forward_step(x, t, alpha, Ks, ks, xs, us,
+                         _step_constants(dt, wheel_base))
 
 
 def riccati_sweep_ref(lam, alpha, A, Bm, Jx, Ju, Hx, Hu, xs, us,
                       dt: float, wheel_base: float):
-    """Plain PyTorch version of the kernel, with its formulas and order of
-    operations. Shapes as ``riccati_sweep``."""
+    """Plain PyTorch version of the kernel. Shapes as ``riccati_sweep``."""
     T = us.shape[0]
     stacked = alpha.dim() == 2
     alpha2 = alpha if stacked else alpha[None]
+    c = _step_constants(dt, wheel_base)
     Ks, ks, dV0, dV1, gnorm = _backward_ref(lam, A, Bm, Jx, Ju, Hx, Hu, us)
     nxs_all, nus_all = [], []
     for a in range(alpha2.shape[0]):
         x = xs[0]
         nxs, nus = [x], []
         for t in range(T):
-            u, x = _forward_step_ref(x, t, alpha2[a], Ks, ks, xs, us, dt,
-                                     wheel_base)
+            u, x = _forward_step(x, t, alpha2[a], Ks, ks, xs, us, c)
             nxs.append(x)
             nus.append(u)
         nxs_all.append(torch.stack(nxs))

@@ -115,7 +115,7 @@ def _fixture_problem(n):
     """First n fixture problems in float64: (torch goals_bl, torch cons,
     JAX goals_bl, JAX cons), goals transformed to start at the start
     state."""
-    g, s, cons = load_fixture(dtype=torch.float64)
+    g, s, cons = load_fixture(dtype=torch.float64, device="cpu")
     g, s, cons = g[:n], s[:n], cons.map(lambda a: a[:n])
     from cilqr_tpu_torch.solver import transform_goals
 

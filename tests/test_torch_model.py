@@ -150,7 +150,7 @@ def test_shrink_tighten_trim():
 def test_iqr_init_and_transform_goals():
     from cilqr_tpu_torch.convert import load_fixture
 
-    g, s, _ = load_fixture(dtype=torch.float64)
+    g, s, _ = load_fixture(dtype=torch.float64, device="cpu")
     g, s = g[:8], s[:8]
     cfg = IlqrConfig()
     gt = TS.transform_goals(g, s)

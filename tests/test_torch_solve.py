@@ -115,7 +115,7 @@ def fixture_runs():
     cfg = PlannerConfig()
     rj = jax_solve_batch(jx(raw["goals"]), jx(raw["starts"]), jcons,
                          cfg.ilqr, cfg.vehicle, cfg.delta_t, backend="blast")
-    g, s, c = load_fixture(dtype=torch.float64)
+    g, s, c = load_fixture(dtype=torch.float64, device="cpu")
     return rj, (g[:N_FIX], s[:N_FIX], c.map(lambda a: a[:N_FIX]))
 
 
@@ -170,7 +170,7 @@ def test_compaction_matches_single_phase(fixture_runs):
     np.testing.assert_allclose(r2.us.numpy(), r1.us.numpy(), atol=1e-12)
 
 
-@pytest.mark.parametrize("backend", ["vmap", "mega"])
+@pytest.mark.parametrize("backend", ["vmap"])
 def test_unported_backends_raise(backend):
     g, s, c = _to_torch(*_synthetic_batch(range(2)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -178,7 +178,7 @@ def test_unported_backends_raise(backend):
 
 
 def test_load_fixture_tiles_and_trims():
-    g, s, c = load_fixture(dtype=torch.float32, batch=300)
+    g, s, c = load_fixture(dtype=torch.float32, device="cpu", batch=300)
     assert g.shape == (300, 81, 6) and s.shape == (300, 6)
     assert torch.equal(g[256:], g[:44])
     assert c.corridor_planes.shape == (300, 81, 16, 3)
