@@ -46,6 +46,8 @@ _SIGNATURES = {
     # (host double arrays), pointers (host array of 17 device pointers),
     # stream
     "solve_batch_mega": [_I] * 8 + [_P] * 4 + [_P],
+    # N, S, block_nb, out (host int): clusters the card runs at once
+    "mega_active_clusters": [_I] * 3 + [_P],
 }
 
 

@@ -169,6 +169,14 @@ def corridor_lane_stack(xs, cbl_c, lanes, offs, bt, beps,
     if xs.device.type != "cuda":
         return corridor_lane_stack_ref(xs, cbl_c, lanes, offs, bt, beps,
                                        want_derivs)
+    return _launch(kernel_operands(xs, cbl_c, lanes, offs), offs, bt, beps,
+                   want_derivs)
+
+
+def kernel_operands(xs, cbl_c, lanes, offs):
+    """The kernel's 25 operands: the inputs of ``corridor_lane_stack``
+    checked, their masks cast to the working type (as in the Pallas
+    wrapper), contiguous."""
     dtype = xs.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"corridor_lane_stack: unsupported dtype {dtype}")
@@ -187,7 +195,6 @@ def corridor_lane_stack(xs, cbl_c, lanes, offs, bt, beps,
     if tuple(xs.shape) != (6, N, B):
         raise ValueError(f"corridor_lane_stack: xs has shape "
                          f"{tuple(xs.shape)}, expected (6, N, B)")
-    # masks become floats of the working type, as in the Pallas wrapper
     ops = [xs, ca, cb, cc, cm.to(dtype)]
     shapes = [(6, N, B)] + [(N, KC, B)] * 4
     for side in lanes:
@@ -202,7 +209,16 @@ def corridor_lane_stack(xs, cbl_c, lanes, offs, bt, beps,
                 f"corridor_lane_stack: operand {i} is {tuple(v.shape)} "
                 f"{v.dtype} on {v.device}, expected {shape} {dtype} on "
                 f"{xs.device}")
-    ops = [v.contiguous() for v in ops]
+    return [v.contiguous() for v in ops]
+
+
+def _launch(ops, offs, bt, beps, want_derivs):
+    """Launch csrc/coststack.cu on ``kernel_operands``' result; returns the
+    rows as ``corridor_lane_stack`` does."""
+    xs = ops[0]
+    N, B, KC, W, D = xs.shape[1], xs.shape[2], ops[1].shape[1], \
+        ops[5].shape[1], len(offs)
+    dtype = xs.dtype
     n_out = 12 if want_derivs else 3
     out = torch.empty((n_out, N, B), dtype=dtype, device=xs.device)
     ptrs = (ctypes.c_void_p * len(ops))(*(v.data_ptr() for v in ops))

@@ -471,9 +471,10 @@ def solve_batch_mega_ref(goals, xs0, us0, ca, cb, cc, laneL, laneR, cfg, veh,
     masks folded (``_fold_constraints``); B a multiple of block_nb.
 
     Returns (xs [N, 6, B], us [T, 2, B], fs [6, B] = cost total, target,
-    dynamic, corridor, lane and lam; istate [3, B] int32 = status, iters and
-    the trips the lane took while RUNNING; block_trips [B / block_nb] int32,
-    the trips each block ran)."""
+    dynamic, corridor, lane and lam; istate [4, B] int32 = status, iters,
+    the trips the lane took while RUNNING and the relinearizations among
+    them (the trips that did not retry the last one's at the next alpha);
+    block_trips [B / block_nb] int32, the trips each block ran)."""
     N, _, B = goals.shape
     T = N - 1
     c = _constants(cfg, veh, dt, T)
@@ -491,6 +492,7 @@ def solve_batch_mega_ref(goals, xs0, us0, ca, cb, cc, laneL, laneR, cfg, veh,
     it = torch.zeros((B,), **i32)
     aidx = torch.zeros((B,), **i32)
     lane_trips = torch.zeros((B,), **i32)
+    relins = torch.zeros((B,), **i32)
     alive = torch.ones((nblk,), dtype=torch.bool, device=dev)
     block_trips = torch.zeros((nblk,), **i32)
     code = {s: torch.full((B,), int(s), **i32) for s in SolverStatus}
@@ -499,6 +501,7 @@ def solve_batch_mega_ref(goals, xs0, us0, ca, cb, cc, laneL, laneR, cfg, veh,
         running = (status == RUNNING) & alive.repeat_interleave(block_nb)
         block_trips += alive.to(torch.int32)
         lane_trips += running.to(torch.int32)
+        relins += (running & (aidx == 0)).to(torch.int32)
 
         A, Bm = _jacobians(xs, us, c)
         Jx, Hx, Ju, Hu = _knot_derivs(xs, us, goals, cons, c)
@@ -557,7 +560,7 @@ def solve_batch_mega_ref(goals, xs0, us0, ca, cb, cc, laneL, laneR, cfg, veh,
     status = torch.where(status == RUNNING, code[SolverStatus.MAX_ITER],
                          status)
     fs = torch.cat([cost, lam[None]])
-    istate = torch.stack([status, it, lane_trips])
+    istate = torch.stack([status, it, lane_trips, relins])
     return xs, us, fs, istate, block_trips
 
 
@@ -569,21 +572,26 @@ def solve_batch_mega_ref(goals, xs0, us0, ca, cb, cc, laneL, laneR, cfg, veh,
 def _launch(goals, xs0, us0, ca, cb, cc, laneL, laneR, cfg, veh, dt,
             block_nb: int = NB):
     """Launch csrc/megasolve.cu on the batch-last operands of
-    ``solve_batch_mega_ref``; same results. Scratch (the candidate
-    trajectory and the gains) is allocated here, lane-minor."""
+    ``solve_batch_mega_ref``; same results. Scratch is allocated here,
+    lane-major: two trajectories a lane (current and candidate), the gains,
+    the candidate's lane barrier values and two lane selections."""
     N, _, B = goals.shape
     T = N - 1
     KC, S = ca.shape[1], laneL.shape[1]
     c = _constants(cfg, veh, dt, T)
+    D = len(c.offs)
     dtype, dev = goals.dtype, goals.device
     kw = dict(dtype=dtype, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
     xs = torch.empty((N, 6, B), **kw)
     us = torch.empty((T, 2, B), **kw)
     fs = torch.empty((6, B), **kw)
-    istate = torch.empty((3, B), dtype=torch.int32, device=dev)
-    block_trips = torch.empty((B // block_nb,), dtype=torch.int32, device=dev)
-    scratch = [torch.empty(shape, **kw) for shape in
-               ((T, 2, 6, B), (T, 2, B), (N, 6, B), (T, 2, B))]
+    istate = torch.empty((4, B), **i32)
+    block_trips = torch.empty((B // block_nb,), **i32)
+    scratch = [torch.empty((B, 2, N * 6 + T * 2), **kw),
+               torch.empty((B, T * 14), **kw),
+               torch.empty((B, N * 2 * D), **kw),
+               torch.empty((B, 2, N * 2 * D), **i32)]
     ptrs = [goals, xs0, us0, ca, cb, cc, laneL, laneR, xs, us, fs, istate,
             block_trips] + scratch
     cst = [getattr(c, name) for name in CONSTANTS]
@@ -594,7 +602,7 @@ def _launch(goals, xs0, us0, ca, cb, cc, laneL, laneR, cfg, veh, dt,
     lib = _build.library()
     fn = lib.solve_batch_mega_f32 if dtype == torch.float32 \
         else lib.solve_batch_mega_f64
-    err = fn(N, B, KC, S, len(c.offs), len(c.alphas), c.max_iter, block_nb,
+    err = fn(N, B, KC, S, D, len(c.alphas), c.max_iter, block_nb,
              ctypes.cast(cst_c, ctypes.c_void_p),
              ctypes.cast(offs_c, ctypes.c_void_p),
              ctypes.cast(alphas_c, ctypes.c_void_p),
@@ -603,6 +611,18 @@ def _launch(goals, xs0, us0, ca, cb, cc, laneL, laneR, cfg, veh, dt,
     _build.check(err, "solve_batch_mega")
     solve_batch_mega.launches += 1
     return xs, us, fs, istate, block_trips
+
+
+def active_clusters(N: int, S: int, block_nb: int, dtype) -> int:
+    """How many of the kernel's clusters (one exit block of block_nb lanes
+    each) the current card runs at once, for N knots and S lane segments a
+    side."""
+    lib = _build.library()
+    fn = lib.mega_active_clusters_f32 if dtype == torch.float32 \
+        else lib.mega_active_clusters_f64
+    out = ctypes.c_int(0)
+    _build.check(fn(N, S, block_nb, ctypes.byref(out)), "solve_batch_mega")
+    return out.value
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from cilqr_tpu_torch.config import PlannerConfig
 from cilqr_tpu_torch.convert import FIXTURE, constraints_from_numpy
 from cilqr_tpu_torch.kernels import megasolve as TM
 from cilqr_tpu_torch.solver import iqr_init, transform_goals
+from cilqr_tpu_torch.types import SolverStatus
 
 torch.set_num_threads(1)
 
@@ -112,6 +113,47 @@ def test_mega_overruns_max_iter_per_block(raw):
     np.testing.assert_allclose(rt.lam.numpy(), np.asarray(rj.lam),
                                rtol=1e-12)
     assert trips.tolist() == [12]
+
+
+@pytest.mark.parametrize("max_iter", [None, 4])
+def test_relinearizations_counted(raw, monkeypatch, max_iter):
+    """istate's fourth row counts the trips on which a lane relinearized:
+    its first trip and each one after a concluded trip, never a retry at
+    the next alpha. Problems 0-1 in one block of 2, to convergence and at
+    the cap of 4 (where lane 0 overruns): the count equals the iterations
+    on a lane whose last trip concluded, exceeds them by at most one on a
+    lane left mid-search at the cap, and lane_trips - relins equals the
+    retries, counted here from the alpha of each rollout."""
+    kw = {} if max_iter is None else dict(max_iter_num=max_iter)
+    ilqr, _ = _ilqr(**kw)
+    alphas = []
+    forward = TM._forward
+
+    def record(alpha, *args):
+        alphas.append(alpha.clone())
+        return forward(alpha, *args)
+
+    monkeypatch.setattr(TM, "_forward", record)
+    ops = TM._operands(*_torch_inputs(raw, 2), ilqr, CFG.vehicle,
+                       CFG.delta_t, None, 2)[0]
+    _, _, _, ist, trips = TM.solve_batch_mega_ref(*ops, ilqr, CFG.vehicle,
+                                                  CFG.delta_t, 2)
+    status, iters, lane_trips, relins = ist.tolist()
+    assert len(alphas) == trips.item()
+    # one block: a lane runs from the first trip until it stops
+    retries = [sum(float(a[j]) != ilqr.line_search.alphas[0]
+                   for a in alphas[:lane_trips[j]]) for j in range(2)]
+    assert [t - r for t, r in zip(lane_trips, relins)] == retries
+    for j in range(2):
+        if status[j] == int(SolverStatus.MAX_ITER):
+            assert iters[j] <= relins[j] <= iters[j] + 1
+        else:
+            assert relins[j] == iters[j]
+    assert sum(retries) > 0
+    if max_iter is None:
+        assert iters == [12, 6] and status != [5, 5]
+    else:
+        assert iters == [6, 4] and status == [5, 5]
 
 
 def test_mega_matches_jax_blast_fixture(raw):
