@@ -6,19 +6,17 @@
 
 #include <cstddef>
 
+// Phase clocks for tools/profile_blast_kernels.py: compiled with
+// -DCILQR_PROFILE, CILQR_CLK(...) keeps its code (clock64() reads summed in
+// registers, stored by thread 0 of the first CTA at the kernel's end);
+// compiled without, as the library is, it is empty.
+#ifdef CILQR_PROFILE
+#define CILQR_CLK(...) __VA_ARGS__
+#else
+#define CILQR_CLK(...)
+#endif
+
 namespace cilqr {
-
-constexpr int kBlock = 128;  // threads per block, one lane (or knot-lane) each
-
-// Angle wrap in the Pallas sweep kernel's floor form
-// x - 2pi*floor((x + pi) / 2pi) (cilqr_tpu/pallas/sweep.py:_normalize_angle).
-// The constants are rounded to T first, as JAX rounds its weak-typed ones.
-template <typename T>
-__device__ __forceinline__ T wrap_angle(T x) {
-  const T pi = T(3.14159265358979323846);
-  const T two_pi = T(6.28318530717958647692);
-  return x - two_pi * floor((x + pi) / two_pi);
-}
 
 // Arithmetic that the compiler may not contract into an FMA, so that a
 // result equals, bit for bit, the same sequence of separately rounded
@@ -41,6 +39,61 @@ __device__ __forceinline__ float infinity<float>() { return __int_as_float(0x7f8
 template <>
 __device__ __forceinline__ double infinity<double>() {
   return __longlong_as_double(0x7ff0000000000000LL);
+}
+
+// A value whose arithmetic is rounded after every operation: written as
+// ordinary expressions, each operator is one separately rounded operation,
+// evaluated left to right as PyTorch evaluates the same expression.
+template <typename T>
+struct Rn {
+  T v;
+  __device__ __forceinline__ Rn() {}
+  __device__ __forceinline__ Rn(T x) : v(x) {}
+};
+
+template <typename T>
+__device__ __forceinline__ Rn<T> operator+(Rn<T> a, Rn<T> b) { return add_rn(a.v, b.v); }
+template <typename T>
+__device__ __forceinline__ Rn<T> operator-(Rn<T> a, Rn<T> b) { return sub_rn(a.v, b.v); }
+template <typename T>
+__device__ __forceinline__ Rn<T> operator*(Rn<T> a, Rn<T> b) { return mul_rn(a.v, b.v); }
+template <typename T>
+__device__ __forceinline__ Rn<T> operator/(Rn<T> a, Rn<T> b) { return div_rn(a.v, b.v); }
+template <typename T>
+__device__ __forceinline__ Rn<T> operator-(Rn<T> a) { return Rn<T>(-a.v); }
+template <typename T>
+__device__ __forceinline__ bool operator<(Rn<T> a, Rn<T> b) { return a.v < b.v; }
+template <typename T>
+__device__ __forceinline__ bool operator>(Rn<T> a, Rn<T> b) { return a.v > b.v; }
+
+template <typename T>
+__device__ __forceinline__ Rn<T> r_min(Rn<T> a, Rn<T> b) { return a < b ? a : b; }
+template <typename T>
+__device__ __forceinline__ Rn<T> r_max(Rn<T> a, Rn<T> b) { return a > b ? a : b; }
+template <typename T>
+__device__ __forceinline__ Rn<T> r_abs(Rn<T> a) { return Rn<T>(fabs(a.v)); }
+template <typename T>
+__device__ __forceinline__ Rn<T> r_sqrt(Rn<T> a) { return Rn<T>(sqrt_rn(a.v)); }
+template <typename T>
+__device__ __forceinline__ Rn<T> r_floor(Rn<T> a) { return Rn<T>(floor(a.v)); }
+template <typename T>
+__device__ __forceinline__ Rn<T> r_cos(Rn<T> a) { return Rn<T>(cos(a.v)); }
+template <typename T>
+__device__ __forceinline__ Rn<T> r_sin(Rn<T> a) { return Rn<T>(sin(a.v)); }
+template <typename T>
+__device__ __forceinline__ Rn<T> r_tan(Rn<T> a) { return Rn<T>(tan(a.v)); }
+template <typename T>
+__device__ __forceinline__ Rn<T> r_log(Rn<T> a) { return Rn<T>(log(a.v)); }
+
+// Angle wrap in floor form, x - 2pi floor((x + pi) / 2pi), the division
+// taken as a multiplication by 1/(2pi): PyTorch on the card divides a
+// tensor by a Python scalar that way, so the plain versions
+// (kernels/megasolve.py: _wrap) can only match a kernel that does too. The
+// constants are the Python doubles pi, 1/(2pi) and 2pi rounded to T.
+template <typename T>
+__device__ __forceinline__ Rn<T> wrap(Rn<T> x, Rn<T> pi, Rn<T> inv_two_pi,
+                                      Rn<T> two_pi) {
+  return x - r_floor((x + pi) * inv_two_pi) * two_pi;
 }
 
 }  // namespace cilqr

@@ -21,8 +21,8 @@
 // fixed order (knots, then planes x discs, then discs x sides); divisions by
 // a constant are multiplications by a reciprocal formed in double precision
 // (PyTorch on the card divides a tensor by a Python scalar that way, so the
-// plain version can only match a kernel that does too: hence `wrap` here
-// rather than common.cuh's wrap_angle); the transcendentals are the accurate
+// plain version can only match a kernel that does too: hence common.cuh's
+// `wrap`, shared with sweep.cu); the transcendentals are the accurate
 // ones PyTorch calls. Threads split a lane's work only across values that
 // are independent, and each value is computed by one thread with the same
 // sequence of operations as in a serial loop; each nearest-segment scan is a
@@ -124,48 +124,6 @@ enum RicSlot {
   RS_BC = 164, kRicVals = 172
 };
 
-// A value whose arithmetic is rounded after every operation.
-template <typename T>
-struct Rn {
-  T v;
-  __device__ __forceinline__ Rn() {}
-  __device__ __forceinline__ Rn(T x) : v(x) {}
-};
-
-template <typename T>
-__device__ __forceinline__ Rn<T> operator+(Rn<T> a, Rn<T> b) { return add_rn(a.v, b.v); }
-template <typename T>
-__device__ __forceinline__ Rn<T> operator-(Rn<T> a, Rn<T> b) { return sub_rn(a.v, b.v); }
-template <typename T>
-__device__ __forceinline__ Rn<T> operator*(Rn<T> a, Rn<T> b) { return mul_rn(a.v, b.v); }
-template <typename T>
-__device__ __forceinline__ Rn<T> operator/(Rn<T> a, Rn<T> b) { return div_rn(a.v, b.v); }
-template <typename T>
-__device__ __forceinline__ Rn<T> operator-(Rn<T> a) { return Rn<T>(-a.v); }
-template <typename T>
-__device__ __forceinline__ bool operator<(Rn<T> a, Rn<T> b) { return a.v < b.v; }
-template <typename T>
-__device__ __forceinline__ bool operator>(Rn<T> a, Rn<T> b) { return a.v > b.v; }
-
-template <typename T>
-__device__ __forceinline__ Rn<T> r_min(Rn<T> a, Rn<T> b) { return a < b ? a : b; }
-template <typename T>
-__device__ __forceinline__ Rn<T> r_max(Rn<T> a, Rn<T> b) { return a > b ? a : b; }
-template <typename T>
-__device__ __forceinline__ Rn<T> r_abs(Rn<T> a) { return Rn<T>(fabs(a.v)); }
-template <typename T>
-__device__ __forceinline__ Rn<T> r_sqrt(Rn<T> a) { return Rn<T>(sqrt_rn(a.v)); }
-template <typename T>
-__device__ __forceinline__ Rn<T> r_floor(Rn<T> a) { return Rn<T>(floor(a.v)); }
-template <typename T>
-__device__ __forceinline__ Rn<T> r_cos(Rn<T> a) { return Rn<T>(cos(a.v)); }
-template <typename T>
-__device__ __forceinline__ Rn<T> r_sin(Rn<T> a) { return Rn<T>(sin(a.v)); }
-template <typename T>
-__device__ __forceinline__ Rn<T> r_tan(Rn<T> a) { return Rn<T>(tan(a.v)); }
-template <typename T>
-__device__ __forceinline__ Rn<T> r_log(Rn<T> a) { return Rn<T>(log(a.v)); }
-
 template <typename T>
 struct MegaArgs {
   int N, B, KC, S, D, n_alpha, max_iter;
@@ -205,7 +163,7 @@ struct Group {
 template <typename T>
 __device__ __forceinline__ Rn<T> wrap(Rn<T> x, const MegaArgs<T>& p) {
   using R = Rn<T>;
-  return x - r_floor((x + K(PI)) * K(INV_TWO_PI)) * K(TWO_PI);
+  return cilqr::wrap(x, K(PI), K(INV_TWO_PI), K(TWO_PI));
 }
 
 template <typename T>

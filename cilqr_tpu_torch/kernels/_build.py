@@ -33,15 +33,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 
 # C signatures: name -> argtypes (every entry point returns int).
 _SIGNATURES = {
     # T, B, KA, dt, wheel_base, lam, alpha, A, Bm, Jx, Ju, Hx, Hu, xs, us,
-    # nxs, nus, Ks, ks, dv0, dv1, gnorm, stream
-    "riccati_sweep": [_I, _I, _I, _D, _D] + [_P] * 17 + [_P],
-    # N, B, KC, W, D, offs (host double[D]), bt, beps, want_derivs,
-    # inputs (host array of 25 device pointers), out, stream
-    "corridor_lane_stack": [_I, _I, _I, _I, _I, _P, _D, _D, _I, _P, _P, _P],
+    # nxs, nus, dv0, dv1, gnorm, stream
+    "riccati_sweep": [_I, _I, _I, _D, _D] + [_P] * 15 + [_P],
+    # N, B, KC, S, W, D, xs strides (component, knot), offs (host
+    # double[D]), bt, beps, want_derivs, inputs (host array of 5 device
+    # pointers: xs, corr, segs, start, edge), out, sel (or null), stream
+    "corridor_lane_stack": [_I] * 6 + [_L, _L, _P, _D, _D, _I] + [_P] * 4,
     # N, B, KC, S, D, n_alpha, max_iter, block_nb, constants, offs, alphas
     # (host double arrays), pointers (host array of 17 device pointers),
     # stream
@@ -126,6 +128,9 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    # counts (device uint64[2]), stream
+    lib.coststack_sqrt_check.argtypes = [_P, _P]
+    lib.coststack_sqrt_check.restype = ctypes.c_int
     lib.cilqr_error_string.argtypes = [ctypes.c_int]
     lib.cilqr_error_string.restype = ctypes.c_char_p
     return lib

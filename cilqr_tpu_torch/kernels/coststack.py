@@ -6,13 +6,22 @@ Replaces the Pallas TPU kernel
 over the D disc centres (x + off*cos(theta), y + off*sin(theta)):
 
 * relax-barrier values over the masked corridor half-planes;
-* per lane side: point-segment distances to the W window segments (sqrt
-  form, not hypot), the nearest by first index (masked slots read +inf; all
-  masked falls back to slot 0), the window-edge clip flag, and the barrier
-  of the selected plane;
+* per lane side: point-segment distances to the knot's window of W lane
+  segments (sqrt form, not hypot), the nearest by first index (masked slots
+  read +inf; all masked falls back to slot 0), the window-edge clip flag,
+  and the barrier of the selected plane;
 * with ``want_derivs``: the x/y/theta Jacobian rows and the 6
   upper-triangle Hessian entries, including the theta-theta
   ``hddx * ddx22`` term.
+
+The constraint operands (``StackOperands``) hold each side's lane segments
+once, un-windowed, with each knot's window start; ``solver_blast.cons_to_bl``
+builds them once per solve round, contiguous and in the working type, so a
+launch casts and copies nothing. The Pallas kernel took per-knot window
+copies instead (gather-free blocks); ``window_lanes`` forms them, and the
+plain version is their gather followed by the windowed math
+(``corridor_lane_stack_windowed``), bit for bit what it computes on
+``cons_to_bl``'s windowed tensors.
 
 Relax barrier and windowed lanes only (solver_blast._use_coststack_kernel
 gates the rest). ``corridor_lane_stack`` launches the kernel for a CUDA
@@ -23,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -59,11 +69,54 @@ def _relax_hess(g, t, eps):
             torch.where(in_log, log_ddx, torch.zeros_like(g)))
 
 
-def corridor_lane_stack_ref(xs, cbl_c, lanes, offs, bt, beps,
-                            want_derivs=False):
-    """Plain PyTorch version of the kernel, with its formulas (sqrt
-    distance, masks as floats compared with 0.5), vectorized over every
-    (knot, lane) at once. Arguments and results as ``corridor_lane_stack``."""
+class StackOperands(NamedTuple):
+    """The kernel's constraint operands, contiguous, in the working type."""
+
+    corr: torch.Tensor    # [4, N, KC, B]: corridor a, b, c and mask (0/1)
+    segs: torch.Tensor    # [2, 8, S, B]: per side a, b, c, x1, y1, x2, y2
+                          # and mask (0/1) of every lane segment
+    start: torch.Tensor   # [2, N, B] int32: each knot's window start
+    edge: torch.Tensor    # [2, 2, N, B]: per side lo, hi (0/1): segments
+                          # exist beyond the window's first, last slot
+    W: int                # window width
+
+
+def gather_windows(row, start, W: int):
+    """Each knot's window of W slots of a lane row: row [S, B], window
+    starts [N, B] -> [N, W, B]."""
+    N, B = start.shape
+    idx = (start[:, None, :]
+           + torch.arange(W, device=start.device)[None, :, None]).long()
+    return torch.gather(row[None].expand(N, row.shape[0], B), 1, idx)
+
+
+def window_lanes(ops: StackOperands):
+    """The per-knot windows that ``ops`` implies: per side (a, b, c, x1,
+    y1, x2, y2, m [N, W, B], lo, hi [N, B]), masks and flags as 0/1 in the
+    working type; what ``cons_to_bl`` gathers from the same rows."""
+    return tuple(tuple(gather_windows(ops.segs[s, i], ops.start[s], ops.W)
+                       for i in range(8)) + (ops.edge[s, 0], ops.edge[s, 1])
+                 for s in range(2))
+
+
+def corridor_lane_stack_ref(xs, ops: StackOperands, offs, bt, beps,
+                            want_derivs=False, want_sel=False):
+    """Plain PyTorch version of the kernel: the windows ``ops`` implies,
+    then the windowed math. Arguments and results as
+    ``corridor_lane_stack``."""
+    return corridor_lane_stack_windowed(xs, tuple(ops.corr.unbind(0)),
+                                        window_lanes(ops), offs, bt, beps,
+                                        want_derivs, want_sel)
+
+
+def corridor_lane_stack_windowed(xs, cbl_c, lanes, offs, bt, beps,
+                                 want_derivs=False, want_sel=False):
+    """The kernel's math on per-knot windows (``cons_to_bl``'s windowed
+    lanes, or ``window_lanes``), with its formulas (sqrt distance, masks
+    as floats compared with 0.5), vectorized over every (knot, lane) at
+    once. cbl_c = (ca, cb, cc, cm [N, KC, B]); lanes per side (a, b, c, x1,
+    y1, x2, y2, m [N, W, B], lo, hi [N, B]; W may differ by side), masks
+    bool or 0/1."""
     dtype = xs.dtype
     ca, cb, cc, cm = cbl_c
     cmb = cm.to(dtype) > 0.5                              # [N, KC, B]
@@ -75,8 +128,7 @@ def corridor_lane_stack_ref(xs, cbl_c, lanes, offs, bt, beps,
     big = torch.tensor(math.inf, dtype=dtype, device=xs.device)
     corr, lane, clip = zero, zero, zero
     jx0 = jx1 = jx2 = h00 = h01 = h02 = h11 = h12 = h22 = zero
-    W = lanes[0][0].shape[1]
-    iota_w = torch.arange(W, device=xs.device)[None, :, None]
+    sels = []
 
     for off in offs:
         lcd = off * ct                                    # [N, B]
@@ -118,8 +170,11 @@ def corridor_lane_stack_ref(xs, cbl_c, lanes, offs, bt, beps,
             dy = cyd[:, None] - (y1 + tpar * aby)
             dist = torch.sqrt(dx * dx + dy * dy)
             dist = torch.where(m.to(dtype) > 0.5, dist, big)
+            W = dist.shape[1]
+            iota_w = torch.arange(W, device=xs.device)[None, :, None]
             dmin = dist.amin(1, keepdim=True)
             idx = torch.where(dist == dmin, iota_w, W).amin(1)   # [N, B]
+            sels.append(idx)
             sel = idx[:, None]
             la = torch.gather(a, 1, sel)[:, 0]
             lb = torch.gather(b, 1, sel)[:, 0]
@@ -148,93 +203,114 @@ def corridor_lane_stack_ref(xs, cbl_c, lanes, offs, bt, beps,
     out = (corr, lane, clip)
     if want_derivs:
         out += (jx0, jx1, jx2, h00, h01, h02, h11, h12, h22)
+    if want_sel:   # [2, D, N, B]: side, disc
+        out += (torch.stack(sels).unflatten(0, (len(offs), 2)).transpose(0, 1)
+                .to(torch.int32),)
     return out
 
 
-def corridor_lane_stack(xs, cbl_c, lanes, offs, bt, beps,
-                        want_derivs=False):
+def corridor_lane_stack(xs, ops: StackOperands, offs, bt, beps,
+                        want_derivs=False, want_sel=False):
     """Fused corridor+lane stack rows for every (knot, lane).
 
-    xs:     [6, N, B] batch-last states.
-    cbl_c:  (ca, cb, cc [N, KC, B], cm [N, KC, B] bool).
-    lanes:  per side (a, b, c, x1, y1, x2, y2 [N, W, B], m [N, W, B] bool,
-            lo, hi [N, B] bool): the windowed form from cons_to_bl.
+    xs:     [6, N, B] batch-last states (any strides, lanes contiguous).
+    ops:    ``StackOperands`` from ``solver_blast.cons_to_bl``.
     offs:   tuple of D disc offsets (Python floats).
 
     Returns (corr, lane, clip [N, B], clip as 0/1 floats) and, with
-    want_derivs, (jx0, jx1, jx2, h00, h01, h02, h11, h12, h22 [N, B]).
+    want_derivs, (jx0, jx1, jx2, h00, h01, h02, h11, h12, h22 [N, B]);
+    with want_sel, last, the selected window slot of every side, disc and
+    (knot, lane), sel [2, D, N, B] int32 (for checks).
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version. Any B is accepted: the kernel masks the ragged last block.
+    version. Any B is accepted: the kernel masks the ragged last tile.
     """
     if xs.device.type != "cuda":
-        return corridor_lane_stack_ref(xs, cbl_c, lanes, offs, bt, beps,
-                                       want_derivs)
-    return _launch(kernel_operands(xs, cbl_c, lanes, offs), offs, bt, beps,
-                   want_derivs)
+        return corridor_lane_stack_ref(xs, ops, offs, bt, beps, want_derivs,
+                                       want_sel)
+    _check_operands(xs, ops, offs)
+    return _launch(xs, ops, offs, bt, beps, want_derivs, want_sel)
 
 
-def kernel_operands(xs, cbl_c, lanes, offs):
-    """The kernel's 25 operands: the inputs of ``corridor_lane_stack``
-    checked, their masks cast to the working type (as in the Pallas
-    wrapper), contiguous."""
+def _check_operands(xs, ops: StackOperands, offs) -> None:
+    """Raise unless the kernel takes (xs, ops, offs) as they are: it casts
+    and copies nothing."""
     dtype = xs.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"corridor_lane_stack: unsupported dtype {dtype}")
-    if len(lanes) != 2 or any(len(side) != 10 or side[8] is None
-                              for side in lanes):
-        raise ValueError("corridor_lane_stack: lanes must be the two "
-                         "windowed sides from cons_to_bl (lane_window > 0)")
-    N, B = xs.shape[1], xs.shape[2]
-    ca, cb, cc, cm = cbl_c
-    KC = ca.shape[1]
-    W = lanes[0][0].shape[1]
+    if not isinstance(ops, StackOperands):
+        raise ValueError("corridor_lane_stack: ops must be the StackOperands "
+                         "of cons_to_bl (lane_window > 0)")
     D = len(offs)
     if not 0 < D <= MAX_DISCS:
         raise ValueError(f"corridor_lane_stack: {D} discs, at most "
                          f"{MAX_DISCS} supported")
-    if tuple(xs.shape) != (6, N, B):
+    if xs.dim() != 3 or xs.shape[0] != 6 or xs.stride(2) != 1:
         raise ValueError(f"corridor_lane_stack: xs has shape "
-                         f"{tuple(xs.shape)}, expected (6, N, B)")
-    ops = [xs, ca, cb, cc, cm.to(dtype)]
-    shapes = [(6, N, B)] + [(N, KC, B)] * 4
-    for side in lanes:
-        a, b, c, x1, y1, x2, y2, m, lo, hi = side
-        ops += [a, b, c, x1, y1, x2, y2, m.to(dtype), lo.to(dtype),
-                hi.to(dtype)]
-        shapes += [(N, W, B)] * 8 + [(N, B)] * 2
-    for i, (v, shape) in enumerate(zip(ops, shapes)):
-        if tuple(v.shape) != shape or v.dtype != dtype \
-                or v.device != xs.device:
+                         f"{tuple(xs.shape)} and strides {xs.stride()}, "
+                         f"expected (6, N, B) with the lane axis contiguous")
+    N, B = xs.shape[1], xs.shape[2]
+    KC, S = ops.corr.shape[2], ops.segs.shape[2]
+    if not 0 < ops.W <= S:
+        raise ValueError(f"corridor_lane_stack: window {ops.W} of {S} "
+                         f"segments")
+    expect = {"corr": ((4, N, KC, B), dtype), "segs": ((2, 8, S, B), dtype),
+              "start": ((2, N, B), torch.int32),
+              "edge": ((2, 2, N, B), dtype)}
+    for name, (shape, want) in expect.items():
+        v = getattr(ops, name)
+        if tuple(v.shape) != shape or v.dtype != want \
+                or v.device != xs.device or not v.is_contiguous():
             raise ValueError(
-                f"corridor_lane_stack: operand {i} is {tuple(v.shape)} "
-                f"{v.dtype} on {v.device}, expected {shape} {dtype} on "
-                f"{xs.device}")
-    return [v.contiguous() for v in ops]
+                f"corridor_lane_stack: {name} is {tuple(v.shape)} {v.dtype} "
+                f"on {v.device}, expected {shape} {want} on {xs.device}, "
+                f"contiguous")
 
 
-def _launch(ops, offs, bt, beps, want_derivs):
-    """Launch csrc/coststack.cu on ``kernel_operands``' result; returns the
-    rows as ``corridor_lane_stack`` does."""
-    xs = ops[0]
-    N, B, KC, W, D = xs.shape[1], xs.shape[2], ops[1].shape[1], \
-        ops[5].shape[1], len(offs)
+def _launch(xs, ops: StackOperands, offs, bt, beps, want_derivs,
+            want_sel=False):
+    """Launch csrc/coststack.cu on checked operands; returns the rows as
+    ``corridor_lane_stack`` does."""
+    N, B = xs.shape[1], xs.shape[2]
+    KC, S, D = ops.corr.shape[2], ops.segs.shape[2], len(offs)
     dtype = xs.dtype
     n_out = 12 if want_derivs else 3
     out = torch.empty((n_out, N, B), dtype=dtype, device=xs.device)
-    ptrs = (ctypes.c_void_p * len(ops))(*(v.data_ptr() for v in ops))
+    sel = torch.empty((2, D, N, B), dtype=torch.int32, device=xs.device) \
+        if want_sel else None
+    ptrs = (ctypes.c_void_p * 5)(*(v.data_ptr() for v in (
+        xs, ops.corr, ops.segs, ops.start, ops.edge)))
     offs_c = (ctypes.c_double * D)(*(float(o) for o in offs))
     lib = _build.library()
     fn = lib.corridor_lane_stack_f32 if dtype == torch.float32 \
         else lib.corridor_lane_stack_f64
-    err = fn(N, B, KC, W, D, ctypes.cast(offs_c, ctypes.c_void_p),
+    err = fn(N, B, KC, S, ops.W, D, xs.stride(0), xs.stride(1),
+             ctypes.cast(offs_c, ctypes.c_void_p),
              float(bt), float(beps), int(bool(want_derivs)),
              ctypes.cast(ptrs, ctypes.c_void_p),
              ctypes.c_void_p(out.data_ptr()),
+             ctypes.c_void_p(0 if sel is None else sel.data_ptr()),
              ctypes.c_void_p(torch.cuda.current_stream(xs.device)
                              .cuda_stream))
     _build.check(err, "corridor_lane_stack")
     corridor_lane_stack.launches += 1
-    return tuple(out.unbind(0))
+    corridor_lane_stack.widths[B] = corridor_lane_stack.widths.get(B, 0) + 1
+    return tuple(out.unbind(0)) + ((sel,) if want_sel else ())
 
 
 corridor_lane_stack.launches = 0
+corridor_lane_stack.widths = {}   # launches by batch width B
+
+
+def sqrt_fast_check(device="cuda"):
+    """Hold the kernel's float square root without its slow-path branch
+    (``sqrt_fast`` in csrc/coststack.cu) to the correctly rounded square
+    root on all 2^32 float bit patterns, on the card: returns (the inputs
+    it takes, those of them on which it differs). The lane selection is
+    exact only if the second is 0."""
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    err = _build.library().coststack_sqrt_check(
+        ctypes.c_void_p(counts.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream(counts.device).cuda_stream))
+    _build.check(err, "coststack_sqrt_check")
+    taken, differ = (int(v) for v in counts.cpu())
+    return taken, differ

@@ -10,8 +10,9 @@ wrapped in the kernel's floor form x - 2pi*floor((x + pi) / 2pi), which is
 not bit-equal to geometry.normalize_angle.
 
 The plain version is the megakernel's backward pass and rollout step
-(``kernels/megasolve.py``), which compute the same functions; the kernel
-sums in another order, so the two agree to round-off, not bit for bit.
+(``kernels/megasolve.py``), and the kernel performs the same sequence of
+separately rounded operations: on the card the two agree bit for bit, on
+dV0, dV1, gnorm and every free-running rollout (chip_smoke.py checks it).
 
 ``riccati_sweep`` launches the kernel for a CUDA tensor and runs
 ``riccati_sweep_ref`` for a CPU tensor (the counterpart of the Pallas
@@ -111,23 +112,22 @@ def riccati_sweep(lam, alpha, A, Bm, Jx, Ju, Hx, Hu, xs, us,
     kw = dict(dtype=dtype, device=lam.device)
     nxs = torch.empty((KA, N, 6, B), **kw)
     nus = torch.empty((KA, T, 2, B), **kw)
-    Ks = torch.empty((T, 2, 6, B), **kw)
-    ks = torch.empty((T, 2, B), **kw)
     dv = torch.empty((3, B), **kw)
     lib = _build.library()
     fn = lib.riccati_sweep_f32 if dtype == torch.float32 \
         else lib.riccati_sweep_f64
     err = fn(T, B, KA, float(dt), float(wheel_base),
              *(_ptr(v) for v in ins.values()),
-             _ptr(nxs), _ptr(nus), _ptr(Ks), _ptr(ks),
-             _ptr(dv[0]), _ptr(dv[1]), _ptr(dv[2]),
+             _ptr(nxs), _ptr(nus), _ptr(dv[0]), _ptr(dv[1]), _ptr(dv[2]),
              ctypes.c_void_p(torch.cuda.current_stream(lam.device)
                              .cuda_stream))
     _build.check(err, "riccati_sweep")
     riccati_sweep.launches += 1
+    riccati_sweep.widths[B] = riccati_sweep.widths.get(B, 0) + 1
     if not stacked:
         return nxs[0], nus[0], dv[0], dv[1], dv[2]
     return tuple(nxs.unbind(0)), tuple(nus.unbind(0)), dv[0], dv[1], dv[2]
 
 
 riccati_sweep.launches = 0
+riccati_sweep.widths = {}   # launches by batch width B

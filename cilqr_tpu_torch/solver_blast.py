@@ -3,8 +3,8 @@
 The same serial-line-search solver (reference semantics,
 ilqr_optimizer.cc:154-320) with the batch axis LAST on every internal
 tensor — [6, N, B], [T, 6, 6, B], [N, KC, B] — the layout the CUDA kernels
-read coalesced, one thread per lane. Public functions keep the JAX
-package's batch-first layout ([B, N, 6]).
+read coalesced, neighbouring threads on neighbouring lanes. Public
+functions keep the JAX package's batch-first layout ([B, N, 6]).
 
 Two hand-written CUDA kernels carry each solver trip: the fused Riccati
 sweep (kernels/sweep.py) and the corridor+lane cost stack
@@ -26,6 +26,7 @@ from .barriers import make_barrier
 from .config import IlqrConfig, VehicleParam
 from .costs import ConstraintSet
 from .geometry import normalize_angle, point_segment_distance
+from .kernels.coststack import StackOperands, gather_windows
 from .solver import iqr_init, transform_goals
 from .types import CostBreakdown, SolveResult, SolverStatus
 
@@ -136,6 +137,8 @@ class ConsBL(NamedTuple):
                          # each [S, B] (shared full scan; lo=hi=None) or
                          # [N, W, B] (per-knot window; lo/hi [N, B] flag
                          # that segments exist beyond that window edge)
+    stack: StackOperands | None = None   # the cost-stack kernel's operands
+                                         # (lane windows on either side)
 
 
 def _last(v):
@@ -153,17 +156,30 @@ def cons_to_bl(cons: ConstraintSet, goals_bl=None, lane_window: int = 0
     The window start is quantized to a grid of stride W/4, exactly as in
     the JAX package, so every knot sees the same W segments; the JAX
     package selects its variant by one-hot ``where`` (gather-free for the
-    TPU), here it is one direct gather."""
+    TPU), here it is one direct gather.
+
+    With windows on either side, ``stack`` holds the cost-stack kernel's
+    operands (kernels/coststack.StackOperands): the corridor rows, each
+    side's segment rows once and each knot's window start, in the working
+    type; ca, cb and cc are views of its corridor rows. Both sides' rows
+    are padded with masked segments to the longer side's S: a windowed
+    side's windows stay within its own segments, and a side of S <= W
+    segments (a full scan) reads the window at start 0, whose masked tail
+    no selection takes (clip flags 0)."""
+    W = lane_window
+    dtype = cons.corridor_planes.dtype
 
     def side(planes, segs, mask):
+        """(lanes as ConsBL holds them, the [S, B] rows, window starts
+        [N, B] or None)."""
         a, b, c = (_last(planes[..., i]) for i in range(3))   # [S, B]
         x1, y1 = _last(segs[..., 0, 0]), _last(segs[..., 0, 1])
         x2, y2 = _last(segs[..., 1, 0]), _last(segs[..., 1, 1])
         m = _last(mask)
+        rows = (a, b, c, x1, y1, x2, y2, m)
         S = a.shape[0]
-        W = lane_window
         if goals_bl is None or not (0 < W < S):
-            return (a, b, c, x1, y1, x2, y2, m, None, None)
+            return rows + (None, None), rows, None
         d = point_segment_distance(goals_bl[0][:, None, :],
                                    goals_bl[1][:, None, :],
                                    x1[None], y1[None], x2[None], y2[None])
@@ -183,25 +199,35 @@ def cons_to_bl(cons: ConstraintSet, goals_bl=None, lane_window: int = 0
             bestd = torch.where(upd, dk, bestd)
             best = torch.where(upd, torch.full_like(best, i), best)
         start = torch.tensor(ks, device=a.device)[best]          # [N, B]
-        N = start.shape[0]
-        idx = start[:, None, :] + torch.arange(W, device=a.device)[None, :, None]
-
-        def win(v):
-            return torch.gather(v[None].expand(N, S, v.shape[1]), 1, idx)
-
         n_valid = m.sum(dim=0)                                   # [B]
         lo = start > 0
         hi = start + W < n_valid[None, :]
-        return tuple(win(v) for v in (a, b, c, x1, y1, x2, y2, m)) + (lo, hi)
+        return (tuple(gather_windows(v, start, W) for v in rows) + (lo, hi),
+                rows, start)
 
-    return ConsBL(
-        ca=_last(cons.corridor_planes[..., 0]),
-        cb=_last(cons.corridor_planes[..., 1]),
-        cc=_last(cons.corridor_planes[..., 2]),
-        cm=_last(cons.corridor_mask),
-        lanes=(side(cons.left_planes, cons.left_segs, cons.left_mask),
-               side(cons.right_planes, cons.right_segs, cons.right_mask)),
-    )
+    planes = [_last(cons.corridor_planes[..., i]) for i in range(3)]
+    cm = _last(cons.corridor_mask)
+    sides = (side(cons.left_planes, cons.left_segs, cons.left_mask),
+             side(cons.right_planes, cons.right_segs, cons.right_mask))
+    stack = None
+    if any(start is not None for _, _, start in sides):
+        N, B = goals_bl.shape[1], goals_bl.shape[2]
+        S = max(rows[0].shape[0] for _, rows, _ in sides)
+        segs = torch.zeros((2, 8, S, B), dtype=dtype, device=cm.device)
+        starts = torch.zeros((2, N, B), dtype=torch.int32, device=cm.device)
+        edge = torch.zeros((2, 2, N, B), dtype=dtype, device=cm.device)
+        for i, (lanes, rows, start) in enumerate(sides):
+            segs[i, :, :rows[0].shape[0]] = torch.stack(
+                rows[:7] + (rows[7].to(dtype),))
+            if start is not None:
+                starts[i] = start
+                edge[i] = torch.stack(lanes[8:]).to(dtype)
+        corr = torch.stack(planes + [cm.to(dtype)])
+        planes = list(corr[:3])
+        stack = StackOperands(corr=corr, segs=segs, start=starts, edge=edge,
+                              W=W)
+    return ConsBL(ca=planes[0], cb=planes[1], cc=planes[2], cm=cm,
+                  lanes=tuple(lanes for lanes, _, _ in sides), stack=stack)
 
 
 def _disc_offsets(cfg: IlqrConfig, veh: VehicleParam, dtype, device):
@@ -326,13 +352,12 @@ def _cost_stack_bl(xs, us, goals, cbl: ConsBL, cfg, veh, want_derivs):
             hu[(i, i)] = hu[(i, i)] + bar.hess_factors(g)[0]
 
     if _use_coststack_kernel(cfg, cbl, xs):
-        # fused corridor+lane stack (kernels/coststack.py): one thread per
-        # (knot, lane) replaces the disc loop below, same math
+        # fused corridor+lane stack (kernels/coststack.py) on the operands
+        # cons_to_bl built: it replaces the disc loop below, same math
         from .kernels.coststack import corridor_lane_stack
 
         res = corridor_lane_stack(
-            xs, (cbl.ca, cbl.cb, cbl.cc, cbl.cm), cbl.lanes,
-            kernel_disc_offsets(cfg, veh), cfg.barrier.t,
+            xs, cbl.stack, kernel_disc_offsets(cfg, veh), cfg.barrier.t,
             cfg.barrier.epsilon, want_derivs=want_derivs)
         corrk = res[0]
         lanek = res[1]
@@ -419,15 +444,16 @@ def _cost_stack_bl(xs, us, goals, cbl: ConsBL, cfg, veh, want_derivs):
 
 def _use_coststack_kernel(cfg, cbl: ConsBL, xs) -> bool:
     """Eligibility for the fused corridor+lane kernel
-    (IlqrConfig.cost_stack_backend): relax barrier and windowed lanes.
-    'pallas' takes the kernel's wrapper on any device (its plain version
+    (IlqrConfig.cost_stack_backend): relax barrier and a lane window on
+    either side, for which cons_to_bl always builds the kernel's operands
+    (with no window both sides are full scans, and the disc loop runs, as
+    in the JAX package). 'pallas' takes the kernel's wrapper on any device (its plain version
     on the CPU); 'auto' takes it for CUDA tensors only, as the JAX package
     takes the Pallas kernel only off the CPU."""
     mode = cfg.cost_stack_backend
     if mode == "xla" or cfg.barrier.kind != "relax":
         return False
-    lane0 = cbl.lanes[0]
-    eligible = lane0[0].dim() == 3 and lane0[8] is not None
+    eligible = cbl.stack is not None
     if mode == "pallas":
         return eligible
     return eligible and xs.device.type == "cuda"

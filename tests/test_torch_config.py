@@ -53,7 +53,8 @@ def test_from_dict_round_trips():
 
 def test_import_does_not_load_jax():
     code = ("import sys, cilqr_tpu_torch, cilqr_tpu_torch.kernels.sweep, "
-            "cilqr_tpu_torch.kernels.coststack\n"
+            "cilqr_tpu_torch.kernels.coststack, "
+            "cilqr_tpu_torch.kernels.megasolve, chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'cilqr_tpu.')) or m == 'cilqr_tpu']\n"
             "assert not bad, bad\n")
