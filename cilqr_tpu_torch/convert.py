@@ -2,7 +2,9 @@
 solve fixture (``benchdata/problems.npz``).
 
 Nothing here imports JAX: configs cross as ``dataclasses.asdict``
-dictionaries, arrays as numpy.
+dictionaries, arrays as numpy (a JAX object is read through its field
+names and ``numpy.asarray``). Tensors go to the card unless ``device``
+says otherwise.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import torch
 
 from .config import PlannerConfig, from_dict
 from .costs import ConstraintSet, trim_constraints
-from .types import SolveResult
+from .scenario import RoadSpec, scenario_from_arrays
+from .types import Scenario, SolveResult, Traj
 
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchdata", "problems.npz")
@@ -81,3 +84,46 @@ def load_fixture(path: str = FIXTURE, dtype=torch.float32, device="cuda",
         goals, starts = tile(goals), tile(starts)
         cons = cons.map(tile)
     return goals, starts, cons
+
+
+def scenario_from_numpy(scn, dtype=torch.float32, device="cuda") -> Scenario:
+    """Scenario from any object with Scenario's fields (a JAX Scenario,
+    batched or not, or a port one): floats in ``dtype``, masks bool,
+    dyn_len int32."""
+    arrays = {f: np.array(getattr(scn, f)) for f in
+              Scenario.__dataclass_fields__ if f != "centerline"}
+    arrays["centerline"] = {f: np.array(getattr(scn.centerline, f))
+                            for f in Traj.__dataclass_fields__}
+    return scenario_from_arrays(arrays, dtype, device)
+
+
+def scenario_to_numpy(scn: Scenario) -> dict:
+    """Scenario -> flat dict of numpy arrays (centerline fields as
+    centerline_*)."""
+    out = {f: getattr(scn, f).detach().cpu().numpy()
+           for f in Scenario.__dataclass_fields__ if f != "centerline"}
+    for f in Traj.__dataclass_fields__:
+        out[f"centerline_{f}"] = getattr(scn.centerline, f).cpu().numpy()
+    return out
+
+
+def lane_from_numpy(lane, dtype=torch.float32, device="cuda") -> tuple:
+    """The lane tuple (left planes, segs, mask, right planes, segs, mask)
+    as tensors: floats in ``dtype``, masks bool."""
+
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype == np.bool_:
+            return torch.as_tensor(a, device=device)
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return tuple(conv(a) for a in lane)
+
+
+def road_spec_from_numpy(spec) -> RoadSpec:
+    """RoadSpec from any object with its fields (a JAX RoadSpec): the
+    same values, as numpy arrays in their own types."""
+    return RoadSpec(**{f: (int(spec.n) if f == "n"
+                           else np.asarray(getattr(spec, f)))
+                       for f in RoadSpec.__dataclass_fields__
+                       if not f.startswith("_")})

@@ -2,8 +2,9 @@
 JAX package, float64 on the CPU, where the wrapper takes its plain version.
 
 Held against JAX's Pallas megakernel in interpret mode (fixture problems 0
-and 1, block_nb=2: decisions identical, controls within 1e-8, cost rtol
-1e-9, lambda rtol 1e-12 -- the two sum the cost stack in other orders) and
+and 1, the fixture's unused constraint slots trimmed, block_nb=2:
+decisions identical, controls within 1e-8, cost rtol 1e-9, lambda rtol
+1e-12 -- the two sum the cost stack in other orders) and
 against JAX's batch-last solver with the full lane scan (lane_window=0) on
 16 fixture problems, the gate of test_torch_solve.py (>= 14/16 decisions
 identical, max |du| <= 1e-6 on those). The loop exits per block, as the
@@ -19,6 +20,7 @@ import torch
 
 from cilqr_tpu.config import PlannerConfig as JPlannerConfig
 from cilqr_tpu.costs import ConstraintSet as JConstraintSet
+from cilqr_tpu.costs import trim_constraints
 from cilqr_tpu.pallas.megasolve import _fold_constraints as jax_fold
 from cilqr_tpu.pallas.megasolve import solve_batch_mega as jax_mega
 from cilqr_tpu.solver_blast import solve_batch_bl as jax_blast
@@ -38,10 +40,15 @@ N_FIX = 16
 
 @pytest.fixture(scope="module")
 def raw():
-    """The first N_FIX fixture problems as numpy arrays (masks bool)."""
+    """The first N_FIX fixture problems as numpy arrays (masks bool), their
+    constraint slots that no problem uses trimmed (exact: everything
+    dropped is masked out), which halves the interpret-mode runs."""
     d = np.load(FIXTURE)
-    return {k: d[k][:N_FIX] for k in ("goals", "starts")
-            + JConstraintSet._fields}
+    cons = trim_constraints(JConstraintSet(
+        *(d[k][:N_FIX] for k in JConstraintSet._fields)))
+    return {"goals": d["goals"][:N_FIX], "starts": d["starts"][:N_FIX],
+            **{k: np.asarray(v) for k, v in zip(JConstraintSet._fields,
+                                                  cons)}}
 
 
 def _jax_inputs(raw, n):
@@ -158,8 +165,11 @@ def test_relinearizations_counted(raw, monkeypatch, max_iter):
 
 def test_mega_matches_jax_blast_fixture(raw):
     """16 fixture problems in one block against JAX's batch-last solver
-    with the full lane scan."""
-    ilqr, jilqr = _ilqr(sweep_backend="xla", lane_window=0)
+    with the full lane scan, in one phase: its compaction cascade decides
+    every lane as one phase does (tests/test_torch_solve.py) and would
+    compile a solve for each cascade width."""
+    ilqr, jilqr = _ilqr(sweep_backend="xla", lane_window=0,
+                        compaction_phase1=0)
     rj = jax_blast(*_jax_inputs(raw, N_FIX), jilqr, JCFG.vehicle,
                    JCFG.delta_t)
     rt = TM.solve_batch_mega(*_torch_inputs(raw, N_FIX), CFG.ilqr,

@@ -6,7 +6,10 @@ mode and the CUDA kernels' plain versions are only taken on request).
 Decisions (status, iterations) must match lane for lane on the synthetic
 problems; on fixture problems, where some lanes are threshold-chaotic
 (tests/test_f32_fixture_gate.py), on at least 14 of 16 (measured 16/16,
-max |du| 1.8e-10 on those)."""
+max |du| 1.8e-10 on those). The port solves with its compaction cascade,
+the JAX reference in one phase (``_one_phase``): the cascade decides
+every lane as one phase does (test_compaction_matches_single_phase holds
+the port's), and JAX would compile its solve for each cascade width."""
 
 import dataclasses
 
@@ -41,6 +44,11 @@ DT = 0.1
 N_FIX = 16
 
 
+def _one_phase(ilqr):
+    """The JAX reference's solver configuration: the same, in one phase."""
+    return dataclasses.replace(ilqr, compaction_phase1=0)
+
+
 def _synthetic_batch(seeds):
     """test_native_parity problems, shrunk and stacked by the JAX package."""
     gs, cs, ss = [], [], []
@@ -65,7 +73,8 @@ def _to_torch(goals, starts, cons):
 
 def test_solve_matches_jax_synthetic():
     goals, starts, cons = _synthetic_batch(range(6))
-    rj = jax_solve_batch(goals, starts, cons, CFG, VEH, DT, backend="blast")
+    rj = jax_solve_batch(goals, starts, cons, _one_phase(CFG), VEH, DT,
+                         backend="blast")
     tcfg = config_from_dict(dataclasses.asdict(PlannerConfig()))
     rt = TB.solve_batch(*_to_torch(goals, starts, cons), tcfg.ilqr,
                         tcfg.vehicle, DT)
@@ -114,7 +123,8 @@ def fixture_runs():
                                       for k in JConstraintSet._fields)))
     cfg = PlannerConfig()
     rj = jax_solve_batch(jx(raw["goals"]), jx(raw["starts"]), jcons,
-                         cfg.ilqr, cfg.vehicle, cfg.delta_t, backend="blast")
+                         _one_phase(cfg.ilqr), cfg.vehicle, cfg.delta_t,
+                         backend="blast")
     g, s, c = load_fixture(dtype=torch.float64, device="cpu")
     return rj, (g[:N_FIX], s[:N_FIX], c.map(lambda a: a[:N_FIX]))
 
