@@ -1,5 +1,6 @@
 """Batched solving + structured metrics (PyTorch counterpart of
-cilqr_tpu/batch.py)."""
+cilqr_tpu/batch.py): ``solve_batch`` over its three backends ("blast",
+"mega" and "vmap"), ``solve_batch_jit`` and the per-batch metrics."""
 
 from __future__ import annotations
 
@@ -19,7 +20,10 @@ def solve_batch(goals, starts, cons: ConstraintSet, cfg, veh, dt,
     backend='blast': the batch-last solver (solver_blast.solve_batch_bl),
     which runs the CUDA kernels for tensors on a card. backend='mega': the
     full-solve megakernel (kernels/megasolve.py), one launch per solve on a
-    card. 'vmap' is not ported yet (ROADMAP.md queue 1 item 1)."""
+    card. backend='vmap': the single-problem solver (solver.solve) over the
+    batch, the JAX package's ``jax.vmap(solver.solve)`` and the semantic
+    reference of the other two (identical decisions, controls to
+    fp-reassociation noise); plain PyTorch, no kernel."""
     if backend == "blast":
         from .solver_blast import solve_batch_bl
 
@@ -31,10 +35,23 @@ def solve_batch(goals, starts, cons: ConstraintSet, cfg, veh, dt,
         return solve_batch_mega(goals, starts, cons, cfg, veh, dt,
                                 warm_start=warm_start)
     if backend == "vmap":
-        raise NotImplementedError(
-            "backend='vmap' is not ported yet (ROADMAP.md: queue 1, item 1, "
-            "the single-problem solve)")
+        from .solver import solve
+
+        return solve(goals, starts, cons, cfg, veh, dt,
+                     warm_start=warm_start)
     raise ValueError(f"unknown backend {backend!r}")
+
+
+def solve_batch_jit(cfg, backend: str = "blast"):
+    """The batched solve as a closure over a static PlannerConfig (the JAX
+    package's jitted closure; nothing is traced here)."""
+    ilqr, veh, dt = cfg.ilqr, cfg.vehicle, cfg.delta_t
+
+    def _f(goals, starts, cons):
+        return solve_batch(goals, starts, cons, ilqr, veh, dt,
+                           backend=backend)
+
+    return _f
 
 
 class BatchMetrics(NamedTuple):

@@ -17,7 +17,7 @@ import torch
 from .config import PlannerConfig, from_dict
 from .costs import ConstraintSet, trim_constraints
 from .scenario import RoadSpec, scenario_from_arrays
-from .types import Scenario, SolveResult, Traj
+from .types import CostBreakdown, Scenario, SolveResult, Traj
 
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchdata", "problems.npz")
@@ -61,6 +61,41 @@ def result_to_numpy(res: SolveResult) -> dict:
     for name in ("total", "target", "dynamic", "corridor", "lane"):
         out[f"cost_{name}"] = getattr(res.cost, name).detach().cpu().numpy()
     return out
+
+
+def solve_result_from_numpy(res, dtype=torch.float32,
+                           device="cuda") -> SolveResult:
+    """SolveResult from any object with its fields (a JAX SolveResult,
+    batched or not): floats in ``dtype``, status and iters int32,
+    lane_clipped bool (or None)."""
+
+    def conv(a):
+        a = np.array(a)
+        if a.dtype == np.bool_ or a.dtype.kind in "iu":
+            return torch.as_tensor(a, device=device)
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    cost = CostBreakdown(*(conv(getattr(res.cost, f))
+                           for f in CostBreakdown.__dataclass_fields__))
+    return SolveResult(**{f: (cost if f == "cost" else
+                              None if getattr(res, f) is None else
+                              conv(getattr(res, f)))
+                          for f in SolveResult.__dataclass_fields__})
+
+
+def mpc_carry_from_numpy(carry, dtype=torch.float32, device="cuda"):
+    """mpc.MpcCarry from any object with its fields (a JAX MpcCarry):
+    xs, us and cycle_time in ``dtype``, no_repair bool (or None)."""
+    from .mpc import MpcCarry
+
+    nr = carry.no_repair
+    return MpcCarry(
+        xs=torch.as_tensor(np.array(carry.xs), dtype=dtype, device=device),
+        us=torch.as_tensor(np.array(carry.us), dtype=dtype, device=device),
+        cycle_time=torch.as_tensor(np.array(carry.cycle_time), dtype=dtype,
+                                   device=device),
+        no_repair=None if nr is None else torch.as_tensor(
+            np.array(nr, dtype=bool), device=device))
 
 
 def load_fixture(path: str = FIXTURE, dtype=torch.float32, device="cuda",

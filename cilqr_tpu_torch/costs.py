@@ -2,9 +2,10 @@
 of cilqr_tpu/costs.py).
 
 ``total_cost`` evaluates TotalCost with its breakdown over a batch of
-trajectories (the replan re-costs its repaired lanes with it). The
-per-problem ``cost_derivatives`` is not ported; the batched solve
-evaluates its cost stack and derivatives in solver_blast.
+trajectories (the replan re-costs its repaired lanes with it);
+``cost_derivatives`` its Jacobians and Hessians, batch-first, for the
+single-problem solver (solver.py). The batch-last solve evaluates its
+cost stack and derivatives in solver_blast and the kernels.
 """
 
 from __future__ import annotations
@@ -205,3 +206,100 @@ def total_cost(xs, us, goals, cons: ConstraintSet, cfg: IlqrConfig,
     total = j_cost + dyn_cost + corr_cost + lane_cost
     return CostBreakdown(total=total, target=j_cost, dynamic=dyn_cost,
                          corridor=corr_cost, lane=lane_cost)
+
+
+# state-limit terms: the state component each row of _limit_terms_state
+# constrains, and the sign of its derivative; the same for the controls
+_STATE_LIMIT_IDX = (3, 3, 4, 4, 5, 5)
+_STATE_LIMIT_SIGN = (-1.0, 1.0, 1.0, -1.0, 1.0, -1.0)
+_CONTROL_LIMIT_IDX = (0, 0, 1, 1)
+_CONTROL_LIMIT_SIGN = (1.0, -1.0, 1.0, -1.0)
+
+
+def cost_derivatives(xs, us, goals, cons: ConstraintSet, cfg: IlqrConfig,
+                     veh: VehicleParam):
+    """Analytic per-knot cost Jacobians and Hessians over the whole horizon
+    (CostJacbian/CostHessian + the six Cons* helpers,
+    ilqr_optimizer.cc:620-769), for a batch: xs [B, N, 6], us [B, T, 2],
+    goals [B, N, 6], cons leaves [B, ...]. Returns (Jx [B, N, 6],
+    Ju [B, T, 2], Hx [B, N, 6, 6], Hu [B, T, 2, 2]); the terminal knot
+    has control (0, 0) and no Ju/Hu (ilqr_optimizer.cc:209-212). The terms
+    accumulate in the JAX function's order."""
+    bar = make_barrier(cfg.barrier)
+    w = cfg.weights
+    zx = torch.zeros_like(xs[..., 0])
+    zu = torch.zeros_like(us[..., 0])
+
+    # tracking quadratics; Jx/Ju as component lists, Hx/Hu as entry grids
+    Jx = [2.0 * w.x_target * (xs[..., 0] - goals[..., 0]),
+          2.0 * w.y_target * (xs[..., 1] - goals[..., 1]),
+          2.0 * w.theta * (xs[..., 2] - goals[..., 2]), zx, zx, zx]
+    Ju = [2.0 * (w.jerk * us[..., 0]), 2.0 * (w.delta_rate * us[..., 1])]
+    diag = (2 * w.x_target, 2 * w.y_target, 2 * w.theta, 2 * w.v, 2 * w.a,
+            2 * w.delta)
+    Hx = [[zx + diag[i] if i == j else zx for j in range(6)]
+          for i in range(6)]
+    Hu = [[zu + (2 * w.jerk, 2 * w.delta_rate)[i] if i == j else zu
+           for j in range(2)] for i in range(2)]
+
+    # state and control limit barriers (g linear: no curvature term)
+    gx = _limit_terms_state(xs, veh)                       # [B, N, 6]
+    gf = bar.grad_factor(gx)
+    hf, _ = bar.hess_factors(gx)
+    for k, (i, sgn) in enumerate(zip(_STATE_LIMIT_IDX, _STATE_LIMIT_SIGN)):
+        Jx[i] = Jx[i] + gf[..., k] * sgn
+        Hx[i][i] = Hx[i][i] + hf[..., k]                  # sign^2 == 1
+    gu = _limit_terms_control(us, veh)                     # [B, T, 4]
+    guf = bar.grad_factor(gu)
+    huf, _ = bar.hess_factors(gu)
+    for k, (i, sgn) in enumerate(zip(_CONTROL_LIMIT_IDX,
+                                     _CONTROL_LIMIT_SIGN)):
+        Ju[i] = Ju[i] + guf[..., k] * sgn
+        Hu[i][i] = Hu[i][i] + huf[..., k]
+
+    def accum_plane_terms(a, b, dth, gfac, hfac, hddx, ddx22, red):
+        """Barrier-of-half-plane contributions summed over the trailing
+        (disc[, plane]) axes; dvec = (a, b, dth, 0, 0, 0)."""
+        Jx[0] = Jx[0] + (gfac * a).sum(red)
+        Jx[1] = Jx[1] + (gfac * b).sum(red)
+        Jx[2] = Jx[2] + (gfac * dth).sum(red)
+        comps = (a, b, dth)
+        for i in range(3):
+            for j in range(3):
+                Hx[i][j] = Hx[i][j] + (hfac * comps[i] * comps[j]).sum(red)
+        Hx[2][2] = Hx[2][2] + (hddx * ddx22).sum(red)
+
+    # corridor barriers (CorridorConsJacbian/Hessian, :690-727)
+    cx, cy, lc, ls = disc_geometry(xs, cfg, veh)           # [B, N, D]
+    p = cons.corridor_planes                               # [B, N, KC, 3]
+    a = p[..., 0][..., None, :]                            # [B, N, 1, KC]
+    b = p[..., 1][..., None, :]
+    c = p[..., 2][..., None, :]
+    g = a * cx[..., None] + b * cy[..., None] - c          # [B, N, D, KC]
+    m = cons.corridor_mask[..., None, :]
+    dth = -a * ls[..., None] + b * lc[..., None]
+    zero = torch.zeros_like(g)
+    gfac = torch.where(m, bar.grad_factor(g), zero)
+    hfac, hddx = bar.hess_factors(g)
+    hfac = torch.where(m, hfac, zero)
+    hddx = torch.where(m, hddx, zero)
+    ddx22 = -a * lc[..., None] - b * ls[..., None]
+    accum_plane_terms(a.expand(g.shape), b.expand(g.shape), dth, gfac, hfac,
+                      hddx, ddx22, (-2, -1))
+
+    # lane barriers (LaneBoundaryConsJacbian/Hessian, :729-769)
+    for planes, segs, mask in ((cons.left_planes, cons.left_segs,
+                                cons.left_mask),
+                               (cons.right_planes, cons.right_segs,
+                                cons.right_mask)):
+        pl = _nearest_lane_plane(cx, cy, planes, segs, mask)  # [B, N, D, 3]
+        la, lb = pl[..., 0], pl[..., 1]
+        lg = la * cx + lb * cy - pl[..., 2]
+        ldth = -la * ls + lb * lc
+        lhf, lhd = bar.hess_factors(lg)
+        accum_plane_terms(la, lb, ldth, bar.grad_factor(lg), lhf, lhd,
+                          -la * lc - lb * ls, -1)
+
+    return (torch.stack(Jx, dim=-1), torch.stack(Ju, dim=-1),
+            torch.stack([torch.stack(r, dim=-1) for r in Hx], dim=-2),
+            torch.stack([torch.stack(r, dim=-1) for r in Hu], dim=-2))

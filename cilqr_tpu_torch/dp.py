@@ -138,7 +138,8 @@ def plan(scns: Scenario, start_x, start_y, start_theta, cfg: PlannerConfig,
     the finite per-segment test (world.barrier_hit_road_spec); the
     traceback and the 81-knot output stay on the table. Only
     ``collision_mode="frenet"`` with a RoadSpec is ported; ``grid`` (and a
-    BarrierGrid) and the spec-less stand-in raise (ROADMAP.md, queue 1)."""
+    BarrierGrid) and the spec-less stand-in raise (ROADMAP.md, queue 1,
+    item 1)."""
     if (grid is not None or cfg.dp.collision_mode != "frenet"
             or spec is None):
         raise NotImplementedError(
@@ -146,7 +147,8 @@ def plan(scns: Scenario, start_x, start_y, start_theta, cfg: PlannerConfig,
             f"{'with a BarrierGrid' if grid is not None else ''}"
             f"{'without a RoadSpec' if spec is None else ''} is not ported; "
             f"the port runs mode 'frenet' with the road's RoadSpec "
-            f"(ROADMAP.md, queue 1)")
+            f"(ROADMAP.md, queue 1, item 1: the rest of world, geometry and "
+            f"dp)")
     B = scns.static_obs.shape[0]
     dp = cfg.dp
     P = dp.ns * dp.nl

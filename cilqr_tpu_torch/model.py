@@ -99,12 +99,24 @@ def dynamics_jacobian_analytic(state, control, dt, wheel_base):
     return A, B
 
 
+def dynamics_jacobian_autodiff(state, control, dt, wheel_base):
+    """Exact Jacobians of the RK2 step by forward-mode autodiff
+    (torch.func.jacfwd, vmapped over the flattened leading axes).
+    Returns (A [..., 6, 6], B [..., 6, 2])."""
+    def step(x, u):
+        return dynamics_rk2(x, u, dt, wheel_base)
+
+    jac = torch.func.vmap(torch.func.jacfwd(step, argnums=(0, 1)))
+    A, B = jac(state.reshape(-1, STATE_DIM), control.reshape(-1, CONTROL_DIM))
+    return (A.reshape(state.shape[:-1] + (STATE_DIM, STATE_DIM)),
+            B.reshape(state.shape[:-1] + (STATE_DIM, CONTROL_DIM)))
+
+
 def dynamics_jacobian(state, control, dt, wheel_base, mode: str = "analytic"):
     if mode == "analytic":
         return dynamics_jacobian_analytic(state, control, dt, wheel_base)
     if mode == "autodiff":
-        raise NotImplementedError(
-            "jacobian_mode='autodiff' is not ported yet (ROADMAP.md, queue 1)")
+        return dynamics_jacobian_autodiff(state, control, dt, wheel_base)
     raise ValueError(f"unknown jacobian mode {mode!r}")
 
 

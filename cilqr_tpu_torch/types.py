@@ -32,6 +32,10 @@ class _Fields:
             one(getattr(self, f.name), *(getattr(o, f.name) for o in others))
             for f in dataclasses.fields(self)))
 
+    def replace(self, **changes):
+        """A copy with the named fields replaced."""
+        return dataclasses.replace(self, **changes)
+
 
 class SolverStatus(enum.IntEnum):
     """Exit states of the solver (same codes as cilqr_tpu.types)."""
@@ -67,6 +71,13 @@ class Traj(_Fields):
     @property
     def n(self) -> int:
         return self.x.shape[-1]
+
+    @classmethod
+    def zeros(cls, shape, dtype=torch.float32, device="cuda") -> "Traj":
+        """A trajectory of zeros, fields of ``shape`` ([N] or [B, N]), on
+        the card unless ``device`` says otherwise."""
+        z = torch.zeros(shape, dtype=dtype, device=device)
+        return cls(**{f.name: z for f in dataclasses.fields(cls)})
 
 
 @dataclasses.dataclass

@@ -7,7 +7,8 @@ modes here: ``exact`` (brute-force point-in-box over every barrier point,
 environment.cpp:46-81) and ``frenet`` with the road's RoadSpec (the
 finite per-segment test of ``barrier_hit_road_spec``). The ``grid`` mode
 and its BarrierGrid, and frenet mode's station-field stand-in without a
-RoadSpec, are not ported (ROADMAP.md, queue 1).
+RoadSpec, are not ported (ROADMAP.md, queue 1, item 1: the rest of world,
+geometry and dp).
 
 A Scenario here carries a leading batch axis [B]; queries are [B, ...].
 """
@@ -261,13 +262,14 @@ def check_optimization_collision(scn: Scenario, x, y, theta, veh_radius,
 
     mode "frenet": the road's RoadSpec (barrier_hit_road_spec); mode
     "exact": every barrier point. Mode "grid", and "frenet" without a
-    RoadSpec, are not ported (ROADMAP.md, queue 1)."""
+    RoadSpec, are not ported (ROADMAP.md, queue 1, item 1)."""
     if mode not in ("frenet", "exact") or (mode == "frenet"
                                            and road_spec is None):
         raise NotImplementedError(
             f"collision mode {mode!r} without a RoadSpec is not ported (the "
             f"BarrierGrid and the grid mode, the frenet station-field "
-            f"stand-in: ROADMAP.md, queue 1)")
+            f"stand-in: ROADMAP.md, queue 1, item 1: the rest of world, "
+            f"geometry and dp)")
     if dyn_polys is None and dilated is None:
         raise ValueError("check_optimization_collision: pass dyn_polys or "
                          "dilated")

@@ -87,10 +87,20 @@ def test_dynamics_jacobian_analytic():
 
 
 def test_autodiff_jacobians_not_ported():
-    x = torch.zeros((3, 6), dtype=torch.float64)
-    u = torch.zeros((3, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        TM.dynamics_jacobian(x, u, DT, VEH.wheel_base, mode="autodiff")
+    """The autodiff mode, once not ported, now runs (torch.func.jacfwd):
+    against JAX's jacfwd on random states, within 1e-12; an unknown mode
+    raises."""
+    x, u = _states(np.random.default_rng(6), 50)
+    A, B = TM.dynamics_jacobian(torch.as_tensor(x), torch.as_tensor(u), DT,
+                                VEH.wheel_base, mode="autodiff")
+    Aj, Bj = JM.dynamics_jacobian(jnp.asarray(x), jnp.asarray(u), DT,
+                                  VEH.wheel_base, mode="autodiff")
+    assert A.shape == (50, 6, 6) and B.shape == (50, 6, 2)
+    np.testing.assert_allclose(A.numpy(), np.asarray(Aj), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(B.numpy(), np.asarray(Bj), rtol=0, atol=1e-12)
+    with pytest.raises(ValueError, match="jacobian mode"):
+        TM.dynamics_jacobian(torch.as_tensor(x), torch.as_tensor(u), DT,
+                             VEH.wheel_base, mode="numeric")
 
 
 def test_rollout():

@@ -604,14 +604,13 @@ def test_unported_options_raise(scn):
     z = torch.zeros(len(SEEDS), dtype=F64)
     grid_cfg = dataclasses.replace(CFG, dp=dataclasses.replace(
         CFG.dp, collision_mode="grid"))
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
         TD.plan(scn, z, z, z, grid_cfg)
-    tracker = dataclasses.replace(CFG, ilqr=dataclasses.replace(
-        CFG.ilqr, init_guess="tracker"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TP._init_guess_warm_start(tracker)
     with pytest.raises(NotImplementedError, match="without a RoadSpec"):
         TD.plan(scn, z, z, z, CFG)
+    # the single-scenario plan takes the same DP
+    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
+        TP.plan(scn.map(lambda a: a[0]), (0.0, 0.0, 0.0, 10.0), CFG)
     with pytest.raises(ValueError, match="spec/road mismatch|different road"):
         TD.plan(scn, z, z, z, CFG, spec=TS.analytic_road_spec(
             road=(30.0, (-90.0, 10.0), 10.0, (180.0, 5.0), 36.0,
