@@ -10,11 +10,13 @@ tested against. Modules keep the JAX package's names and layout:
   geometry, model, barriers, costs    — per-knot math, constraint prep,
                                         total_cost, cost_derivatives
   scenario, reference_line, world     — scenarios, road queries, probes
+                                        (BarrierGrid, every collision mode)
   dp, corridor                        — DP coarse search, safe corridors
   lqr, tracker                        — DARE fixed point, the tracker
                                         initial guess
   solver                              — the single-problem solver (batch
                                         first), goal transform, LQR guess
+  pscan                               — the horizon-parallel backward pass
   solver_blast                        — the batch-last solve loop
   kernels.sweep, kernels.coststack,
   kernels.megasolve                   — CUDA kernels + plain PyTorch versions
@@ -24,14 +26,23 @@ tested against. Modules keep the JAX package's names and layout:
   mpc                                 — the receding-horizon MPC loop,
                                         batched and single
   convert                             — crossing from the JAX package
+  checkpoint                          — npz files in the JAX package's
+                                        layout
+  profiling                           — stage timers, trace capture
+  viz                                 — matplotlib figures (imported
+                                        lazily)
+  bench_prep, run                     — the fixture generator and the
+                                        CLI (python -m ...; not imported
+                                        here, so that -m runs them fresh)
 
 Importing it never imports JAX, and never builds a kernel: the CUDA
 library is compiled at first launch (kernels/_build.py).
 """
 
-from . import (barriers, batch, config, convert, corridor, costs, dp,
-               geometry, lqr, model, mpc, pipeline, reference_line, scenario,
-               solver, solver_blast, tracker, types, world)
+from . import (barriers, batch, checkpoint, config, convert, corridor,
+               costs, dp, geometry, lqr, model, mpc, pipeline, profiling,
+               pscan, reference_line, scenario, solver, solver_blast,
+               tracker, types, viz, world)
 from .config import DEFAULT_CONFIG, PlannerConfig
 from .kernels import coststack, megasolve, sweep
 from .types import SolverStatus

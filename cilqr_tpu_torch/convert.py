@@ -18,6 +18,7 @@ from .config import PlannerConfig, from_dict
 from .costs import ConstraintSet, trim_constraints
 from .scenario import RoadSpec, scenario_from_arrays
 from .types import CostBreakdown, Scenario, SolveResult, Traj
+from .world import BarrierGrid
 
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchdata", "problems.npz")
@@ -162,3 +163,18 @@ def road_spec_from_numpy(spec) -> RoadSpec:
                            else np.asarray(getattr(spec, f)))
                        for f in RoadSpec.__dataclass_fields__
                        if not f.startswith("_")})
+
+
+def barrier_grid_from_numpy(grid, dtype=None, device="cuda") -> BarrierGrid:
+    """world.BarrierGrid from any object with its fields (a JAX
+    BarrierGrid): the same tables; the origin in its own type unless
+    ``dtype`` is given."""
+    def conv(a, dt=None):
+        return None if a is None else torch.as_tensor(np.array(a), dtype=dt,
+                                                      device=device)
+
+    return BarrierGrid(integral=conv(grid.integral),
+                       origin=conv(grid.origin, dtype), cell=float(grid.cell),
+                       dilated=conv(grid.dilated),
+                       half=None if grid.half is None else float(grid.half),
+                       span=None if grid.span is None else int(grid.span))

@@ -13,6 +13,11 @@ Where the JAX package vmaps one scenario's plan, every tensor here carries
 the scenario axis first; scenarios are processed in chunks so that a
 layer's probes fit a budget (``PROBES_PER_CHUNK``), all parents of a
 chunk at once (``DpConfig.parent_chunk`` = 70, the layer's full width).
+
+The road barrier is probed by ``DpConfig.collision_mode`` (world.py):
+"frenet" (the RoadSpec's finite test, or without a spec the station-field
+stand-in), "grid" (the road's BarrierGrid) or "exact" (every barrier
+point, its temporaries bounded by world.EXACT_TESTS_PER_CHUNK).
 """
 
 from __future__ import annotations
@@ -74,8 +79,8 @@ def _align(d, nq):
     return d.map(lambda t: t.reshape(t.shape[:1] + (1,) * nq + t.shape[1:]))
 
 
-def _segment_cost(scn: Scenario, cfg: PlannerConfig, s_pts, l_pts, last_s,
-                  last_l, ref, safe_margin, dilated, spec):
+def _segment_cost(scn: Scenario, grid, cfg: PlannerConfig, s_pts, l_pts,
+                  last_s, last_l, ref, safe_margin, dilated, spec):
     """Collision / bounds sweep over interpolated (s, l) segments
     (GetCollisionCost, dp_planner.cpp:39-85): s_pts, l_pts [b, ..., nseg];
     ``ref`` the station fields at s_pts (broadcasting over the child
@@ -97,9 +102,18 @@ def _segment_cost(scn: Scenario, cfg: PlannerConfig, s_pts, l_pts, last_s,
     heading = ref["theta"] + torch.atan(
         (dl / ds) / (1.0 - ref["kappa"] * l_pts))
 
+    mode = dp.collision_mode
+    frenet = None
+    if mode == "frenet" and spec is None:
+        # the station-field stand-in, from the fields already evaluated at
+        # the probe stations (broadcasting over the child laterals)
+        frenet = (ref["x"], ref["y"], ref["theta"], ref["kappa"],
+                  ref["left_bound"], ref["right_bound"])
     collide = check_optimization_collision(
         scn, cx, cy, heading, veh.radius, veh.r2x, veh.f2x,
-        collision_buffer=0.0, mode="frenet", dilated=dilated, road_spec=spec)
+        collision_buffer=0.0, mode=mode, dilated=dilated,
+        road_spec=spec if mode == "frenet" else None, grid=grid,
+        frenet=frenet)
     any_bad = (off_road | collide).any(dim=-1)
     w = torch.full(any_bad.shape, dp.w_obstacle, dtype=s_pts.dtype,
                    device=s_pts.device)
@@ -132,23 +146,20 @@ def plan(scns: Scenario, start_x, start_y, start_theta, cfg: PlannerConfig,
     """DpPlanner::Plan (dp_planner.cpp:135-281) for a batch of scenarios
     (leading axis B) and start poses [B].
 
+    grid: the road's world.BarrierGrid, required in ``collision_mode``
+    "grid" (built with ``half`` = the vehicle radius, the probes take its
+    one-gather dilated table), ignored in the other modes.
+
     spec: the road's scenario.RoadSpec (the path bench.py runs): every
     station lookup of the decision path is closed-form
-    (evaluate_station_fields_analytic) and the road-barrier probes take
-    the finite per-segment test (world.barrier_hit_road_spec); the
-    traceback and the 81-knot output stay on the table. Only
-    ``collision_mode="frenet"`` with a RoadSpec is ported; ``grid`` (and a
-    BarrierGrid) and the spec-less stand-in raise (ROADMAP.md, queue 1,
-    item 1)."""
-    if (grid is not None or cfg.dp.collision_mode != "frenet"
-            or spec is None):
-        raise NotImplementedError(
-            f"DP collision mode {cfg.dp.collision_mode!r} "
-            f"{'with a BarrierGrid' if grid is not None else ''}"
-            f"{'without a RoadSpec' if spec is None else ''} is not ported; "
-            f"the port runs mode 'frenet' with the road's RoadSpec "
-            f"(ROADMAP.md, queue 1, item 1: the rest of world, geometry and "
-            f"dp)")
+    (evaluate_station_fields_analytic) and frenet-mode road-barrier probes
+    take the finite per-segment test (world.barrier_hit_road_spec);
+    without it the lookups read the centerline table and frenet mode takes
+    the station-field stand-in (world.barrier_hit_frenet). The traceback
+    and the 81-knot output stay on the table."""
+    if cfg.dp.collision_mode == "grid" and grid is None:
+        raise ValueError("DP collision mode 'grid' needs the road's "
+                         "BarrierGrid (world.build_barrier_grid)")
     B = scns.static_obs.shape[0]
     dp = cfg.dp
     P = dp.ns * dp.nl
@@ -156,10 +167,11 @@ def plan(scns: Scenario, start_x, start_y, start_theta, cfg: PlannerConfig,
     per_scn = width * P * 16
     chunk = max(1, PROBES_PER_CHUNK // per_scn)
     if chunk >= B:
-        return _plan_chunk(scns, start_x, start_y, start_theta, cfg, spec)
+        return _plan_chunk(scns, start_x, start_y, start_theta, cfg, grid,
+                           spec)
     parts = [_plan_chunk(scns.map(lambda a, i=i: a[i:i + chunk]),
                          start_x[i:i + chunk], start_y[i:i + chunk],
-                         start_theta[i:i + chunk], cfg, spec)
+                         start_theta[i:i + chunk], cfg, grid, spec)
              for i in range(0, B, chunk)]
     return DpResult(
         traj=parts[0].traj.map(lambda *v: torch.cat(v),
@@ -169,7 +181,7 @@ def plan(scns: Scenario, start_x, start_y, start_theta, cfg: PlannerConfig,
 
 
 def _plan_chunk(scn: Scenario, start_x, start_y, start_theta,
-                cfg: PlannerConfig, spec) -> DpResult:
+                cfg: PlannerConfig, grid, spec) -> DpResult:
     dp = cfg.dp
     NT, NS, NL = dp.nt, dp.ns, dp.nl
     cl = scn.centerline
@@ -190,10 +202,14 @@ def _plan_chunk(scn: Scenario, start_x, start_y, start_theta,
                       rect=True)
     l_inds = torch.arange(NL, device=dev)
 
-    _check_spec(spec, cl, packed)
+    if spec is not None:
+        _check_spec(spec, cl, packed)
 
-    def eval_f(sv, fields=DP_FIELDS):
-        return evaluate_station_fields_analytic(spec, sv, fields)
+        def eval_f(sv, fields=DP_FIELDS):
+            return evaluate_station_fields_analytic(spec, sv, fields)
+    else:
+        def eval_f(sv, fields=DP_FIELDS):
+            return evaluate_station_fields(cl, sv, fields, packed=packed)
 
     def lat_off(s, li):
         ref = eval_f(s, ("left_bound", "right_bound"))
@@ -228,8 +244,8 @@ def _plan_chunk(scn: Scenario, start_x, start_y, start_theta,
     tv0 = torch.arange(nseg0, dtype=dtype, device=dev) * (unit_time / nseg0)
     s_dd0, _ = _interp_sl(ps[..., :1], pl[..., :1], station[:, None],
                           cur_l_l0[..., :1], nseg0)           # [b, NS, 1, 17]
-    obst0 = _segment_cost(scn, cfg, s_pts, l_pts, ps, pl, eval_f(s_dd0),
-                          safe_margin,
+    obst0 = _segment_cost(scn, grid, cfg, s_pts, l_pts, ps, pl,
+                          eval_f(s_dd0), safe_margin,
                           (_align(sd, 3), _align(dyn_dilated(tv0), 2)), spec)
 
     cur_l = cur_l_l0
@@ -307,7 +323,7 @@ def _plan_chunk(scn: Scenario, start_x, start_y, start_theta,
                                  cp_l.expand(b, w, NS, 1), st_c[:, :1],
                                  ccur_l[..., :1], nseg)
             obst.append(_segment_cost(
-                scn, cfg, csp, clp,
+                scn, grid, cfg, csp, clp,
                 last_s[:, sl, None, None].expand(b, w, NS, NL),
                 last_l[:, sl, None, None].expand(b, w, NS, NL),
                 eval_f(s_dd), safe_margin, dilated, spec).reshape(b, w, Cn))

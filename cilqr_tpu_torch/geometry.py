@@ -180,6 +180,41 @@ def point_in_convex_polygon(px, py, poly, mask, eps: float = 0.0):
     return m.any(dim=-1) & (pos.all(dim=-1) | neg.all(dim=-1))
 
 
+def polygon_distance_point(px, py, poly, mask):
+    """Distance from points to convex polygons: 0 inside, else the least
+    distance to an edge segment (Polygon2d::DistanceTo(Vec2d),
+    polygon2d.cpp). A fully invalid polygon is at +inf."""
+    pts, m = _first_valid_fill(poly, mask)
+    nxt = torch.roll(pts, -1, dims=-2)
+    d = point_segment_distance(px[..., None], py[..., None], pts[..., 0],
+                               pts[..., 1], nxt[..., 0], nxt[..., 1])
+    dmin = d.amin(dim=-1)
+    inside = point_in_convex_polygon(px, py, poly, mask)
+    dist = torch.where(inside, torch.zeros_like(dmin), dmin)
+    return torch.where(m.any(dim=-1), dist, torch.full_like(dist, math.inf))
+
+
+def point_in_oriented_box(px, py, cx, cy, theta, length, width):
+    """Closed membership of points in oriented boxes (Box2d::IsPointIn,
+    box2d.cpp): rotated into the box frame and compared with the
+    half-extents."""
+    dx = px - cx
+    dy = py - cy
+    c = torch.cos(theta)
+    s = torch.sin(theta)
+    u = c * dx + s * dy
+    v = -s * dx + c * dy
+    return (u.abs() <= length / 2.0) & (v.abs() <= width / 2.0)
+
+
+def points_in_aabb_count(px, py, minx, miny, maxx, maxy, mask):
+    """Count of masked points [..., P] inside closed axis-aligned boxes
+    (Box2d::IsPointIn with theta=0 boxes, environment.cpp:74-78)."""
+    inside = ((px >= minx) & (px <= maxx) & (py >= miny) & (py <= maxy)
+              & mask)
+    return inside.sum(dim=-1)
+
+
 def sample_polygon_edges(corners, multiple: int = 5):
     """Boundary samples of a polygon at ratio steps 1/multiple per edge,
     endpoints inclusive (Polygon2d::sample_points, polygon2d.cpp:259-271:

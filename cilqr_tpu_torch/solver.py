@@ -313,12 +313,12 @@ def solve_with_history(coarse_xs, start_state, cons: ConstraintSet,
 
 
 def _select_backward(cfg: IlqrConfig):
-    """"scan": the reference's sequential recursion (backward_pass).
-    "pscan", the horizon-parallel associative-scan form, is not ported."""
+    """"scan": the reference's sequential recursion (backward_pass);
+    "pscan": the horizon-parallel associative-scan form (pscan.py)."""
     if cfg.backward_backend == "pscan":
-        raise NotImplementedError(
-            "backward_backend='pscan' is not ported yet (ROADMAP.md, queue "
-            "1, item 3: pscan.py)")
+        from .pscan import backward_pass_pscan
+
+        return backward_pass_pscan
     return backward_pass
 
 

@@ -54,10 +54,14 @@ def test_from_dict_round_trips():
 def test_import_does_not_load_jax():
     code = ("import sys, cilqr_tpu_torch, cilqr_tpu_torch.kernels.sweep, "
             "cilqr_tpu_torch.kernels.coststack, "
-            "cilqr_tpu_torch.kernels.megasolve, chip_smoke\n"
+            "cilqr_tpu_torch.kernels.megasolve, cilqr_tpu_torch.run, "
+            "cilqr_tpu_torch.bench_prep, cilqr_tpu_torch.checkpoint, "
+            "cilqr_tpu_torch.profiling, cilqr_tpu_torch.viz, "
+            "cilqr_tpu_torch.pscan, chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'cilqr_tpu.')) or m == 'cilqr_tpu']\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "assert 'matplotlib' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -46,13 +46,12 @@ from cilqr_tpu_torch import scenario as TS
 from cilqr_tpu_torch.config import PlannerConfig
 from cilqr_tpu_torch.types import SolverStatus
 
-SEEDS = (0, 1, 2, 156)
+import torch_shared
+
+SEEDS = torch_shared.SEEDS
 DIRTY = SEEDS.index(156)
 SINGLE = 240
-CFG = PlannerConfig()
-CFG = dataclasses.replace(
-    CFG, ilqr=dataclasses.replace(CFG.ilqr, compaction_phase1=0),
-    repair=dataclasses.replace(CFG.repair, margins=CFG.repair.margins[:1]))
+CFG = torch_shared.replan_config()
 JCFG = JPlannerConfig()
 JCFG = dataclasses.replace(
     JCFG, ilqr=dataclasses.replace(JCFG.ilqr, compaction_phase1=0),
@@ -68,14 +67,14 @@ def _np(a):
 
 
 @pytest.fixture(scope="module")
-def batch():
-    """The port's replan on SEEDS and what both loops need."""
+def batch(request, tmp_path_factory):
+    """The port's replan on SEEDS (computed once a test run:
+    torch_shared) and what both loops need."""
     scn = TS.make_scenario_batch(SEEDS, dtype=F64, device="cpu")
     lane = TP.make_lane_tuple(scn.left_barrier_xy[0], scn.right_barrier_xy[0],
                               CFG)
     spec = TS.analytic_road_spec(dtype=np.float64)
-    starts = torch.tensor(START, dtype=F64).repeat(len(SEEDS), 1)
-    out = TP.plan_batch(scn, starts, CFG, None, lane, spec=spec)
+    out = torch_shared.replan(request, tmp_path_factory)
     carry = TM.MpcCarry(xs=out.solve.xs, us=out.solve.us,
                         cycle_time=torch.zeros(len(SEEDS), dtype=F64),
                         no_repair=torch.zeros(len(SEEDS), dtype=torch.bool))

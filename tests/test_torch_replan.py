@@ -60,17 +60,16 @@ from cilqr_tpu_torch import world as TW
 from cilqr_tpu_torch.config import PlannerConfig
 from cilqr_tpu_torch.solver import iqr_init, transform_goals
 
-SEEDS = (0, 1, 2, 156)
+import torch_shared
+
+SEEDS = torch_shared.SEEDS
 DIRTY_SEED = 156
 # the solves without the compaction cascade (tests/test_torch_solve.py
 # holds it), and a ladder of its first (warm) round only: JAX compiles its
 # solve once per cascade width and per round's configuration, which would
 # take most of this module's time (test_repair_rounds_match_jax holds the
 # rounds' configurations)
-CFG = PlannerConfig()
-CFG = dataclasses.replace(
-    CFG, ilqr=dataclasses.replace(CFG.ilqr, compaction_phase1=0),
-    repair=dataclasses.replace(CFG.repair, margins=CFG.repair.margins[:1]))
+CFG = torch_shared.replan_config()
 JCFG = JPlannerConfig()
 JCFG = dataclasses.replace(
     JCFG, ilqr=dataclasses.replace(JCFG.ilqr, compaction_phase1=0),
@@ -109,11 +108,10 @@ def port_dp(scn, lane):
 
 
 @pytest.fixture(scope="module")
-def port_plan(scn, lane):
-    spec = TS.analytic_road_spec(dtype=np.float64)
-    starts = torch.tensor([0.0, 0.0, 0.0, 10.0], dtype=F64).repeat(
-        len(SEEDS), 1)
-    return TP.plan_batch(scn, starts, CFG, None, lane, spec=spec)
+def port_plan(request, tmp_path_factory):
+    """The port's plan_batch on SEEDS in CFG, with the road's lane
+    constraints and RoadSpec (computed once a test run: torch_shared)."""
+    return torch_shared.replan(request, tmp_path_factory)
 
 
 def test_scenarios_bit_identical(jscn, scn):
@@ -601,16 +599,19 @@ def test_repair_rounds_match_jax(margins, cold_from, brake):
 
 
 def test_unported_options_raise(scn):
+    """Grid mode and frenet mode without a RoadSpec run (held against JAX
+    in tests/test_torch_dp_modes.py); grid mode without its BarrierGrid
+    and a RoadSpec of another road raise."""
     z = torch.zeros(len(SEEDS), dtype=F64)
     grid_cfg = dataclasses.replace(CFG, dp=dataclasses.replace(
         CFG.dp, collision_mode="grid"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
+    with pytest.raises(ValueError, match="BarrierGrid"):
         TD.plan(scn, z, z, z, grid_cfg)
-    with pytest.raises(NotImplementedError, match="without a RoadSpec"):
-        TD.plan(scn, z, z, z, CFG)
-    # the single-scenario plan takes the same DP
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        TP.plan(scn.map(lambda a: a[0]), (0.0, 0.0, 0.0, 10.0), CFG)
+    for cfg, grid in ((grid_cfg, TP.road_grid(scn.barrier_xy[0], CFG)),
+                      (CFG, None)):
+        d = TD.plan(scn, z, z, z, cfg, grid)
+        assert d.sel_s.shape == (len(SEEDS), CFG.dp.nt)
+        assert torch.isfinite(d.traj.x).all() and d.ok.any()
     with pytest.raises(ValueError, match="spec/road mismatch|different road"):
         TD.plan(scn, z, z, z, CFG, spec=TS.analytic_road_spec(
             road=(30.0, (-90.0, 10.0), 10.0, (180.0, 5.0), 36.0,

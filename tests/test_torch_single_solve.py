@@ -34,15 +34,12 @@ from cilqr_tpu_torch import batch as TB
 from cilqr_tpu_torch import costs as TCo
 from cilqr_tpu_torch import model as TM
 from cilqr_tpu_torch import pipeline as TP
-from cilqr_tpu_torch import scenario as TS
 from cilqr_tpu_torch import solver as TSo
-from cilqr_tpu_torch.config import PlannerConfig
 
-SEEDS = (0, 1, 2, 156)
-CFG = PlannerConfig()
-CFG = dataclasses.replace(
-    CFG, ilqr=dataclasses.replace(CFG.ilqr, compaction_phase1=0),
-    repair=dataclasses.replace(CFG.repair, margins=CFG.repair.margins[:1]))
+import torch_shared
+
+SEEDS = torch_shared.SEEDS
+CFG = torch_shared.replan_config()
 JCFG = JPlannerConfig()
 F64 = torch.float64
 
@@ -58,14 +55,12 @@ def _scaled(got, want):
 
 
 @pytest.fixture(scope="module")
-def problem():
-    """The port's replan on SEEDS: (goals, starts, constraints, its
-    output)."""
-    scn = TS.make_scenario_batch(SEEDS, dtype=F64, device="cpu")
-    spec = TS.analytic_road_spec(dtype=np.float64)
-    starts = torch.tensor([0.0, 0.0, 0.0, 10.0], dtype=F64).repeat(
+def problem(request, tmp_path_factory):
+    """The port's replan on SEEDS (computed once a test run:
+    torch_shared): (goals, starts, constraints, its output)."""
+    out = torch_shared.replan(request, tmp_path_factory)
+    starts = torch.tensor(torch_shared.START, dtype=F64).repeat(
         len(SEEDS), 1)
-    out = TP.plan_batch(scn, starts, CFG, None, None, spec=spec)
     return (TP.coarse_to_states(out.coarse), TP.start_states(starts, F64),
             TP.prep_constraints(out.corridors, CFG), out)
 
@@ -167,8 +162,13 @@ def test_vmap_backend_matches_blast(problem):
 
 
 def test_pscan_backward_raises(problem):
+    """backward_backend="pscan" selects the parallel scan (held against
+    JAX in tests/test_torch_pscan.py) and the solve concludes on it."""
+    from cilqr_tpu_torch import pscan
+
     goals, starts, cons, _ = problem
     cfg = dataclasses.replace(CFG.ilqr, backward_backend="pscan")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-        TSo.solve(goals[:1], starts[:1], cons.map(lambda a: a[:1]), cfg,
-                  CFG.vehicle, CFG.delta_t)
+    assert TSo._select_backward(cfg) is pscan.backward_pass_pscan
+    res = TSo.solve(goals[:1], starts[:1], cons.map(lambda a: a[:1]), cfg,
+                    CFG.vehicle, CFG.delta_t)
+    assert int(res.status[0]) != 0 and torch.isfinite(res.us).all()

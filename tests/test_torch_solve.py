@@ -35,6 +35,7 @@ from cilqr_tpu_torch.kernels import coststack as TCS
 from cilqr_tpu_torch.kernels import sweep as TSW
 
 from test_native_parity import _problem
+from torch_shared import shared
 
 torch.set_num_threads(1)
 
@@ -109,9 +110,17 @@ def test_solve_matches_jax_synthetic():
 
 
 @pytest.fixture(scope="module")
-def fixture_runs():
-    """The first N_FIX fixture problems in float64, solved once by the JAX
-    package; the port's inputs alongside."""
+def fixture_runs(request, tmp_path_factory):
+    """The first N_FIX fixture problems in float64, solved once a test run
+    by the JAX package (its result as numpy, shared by the xdist workers:
+    tests/torch_shared.py); the port's inputs alongside."""
+    rj = shared(request, tmp_path_factory, "solve_fixture_jax",
+                _jax_fixture_solve)
+    g, s, c = load_fixture(dtype=torch.float64, device="cpu")
+    return rj, (g[:N_FIX], s[:N_FIX], c.map(lambda a: a[:N_FIX]))
+
+
+def _jax_fixture_solve():
     d = np.load(FIXTURE)
     raw = {k: d[k][:N_FIX] for k in ("goals", "starts")
            + JConstraintSet._fields}
@@ -125,8 +134,7 @@ def fixture_runs():
     rj = jax_solve_batch(jx(raw["goals"]), jx(raw["starts"]), jcons,
                          _one_phase(cfg.ilqr), cfg.vehicle, cfg.delta_t,
                          backend="blast")
-    g, s, c = load_fixture(dtype=torch.float64, device="cpu")
-    return rj, (g[:N_FIX], s[:N_FIX], c.map(lambda a: a[:N_FIX]))
+    return jax.tree.map(np.asarray, rj)
 
 
 def _fixture_decisions(rt, rj):
