@@ -25,6 +25,9 @@ tested against. Modules keep the JAX package's names and layout:
   pipeline                            — plan_batch (the replan), plan
   mpc                                 — the receding-horizon MPC loop,
                                         batched and single
+  dist                                — torch.distributed process
+                                        groups, sharded solve, replan
+                                        and MPC steps
   convert                             — crossing from the JAX package
   checkpoint                          — npz files in the JAX package's
                                         layout
@@ -40,9 +43,9 @@ library is compiled at first launch (kernels/_build.py).
 """
 
 from . import (barriers, batch, checkpoint, config, convert, corridor,
-               costs, dp, geometry, lqr, model, mpc, pipeline, profiling,
-               pscan, reference_line, scenario, solver, solver_blast,
-               tracker, types, viz, world)
+               costs, dist, dp, geometry, lqr, model, mpc, pipeline,
+               profiling, pscan, reference_line, scenario, solver,
+               solver_blast, tracker, types, viz, world)
 from .config import DEFAULT_CONFIG, PlannerConfig
 from .kernels import coststack, megasolve, sweep
 from .types import SolverStatus

@@ -8,22 +8,37 @@ Usage examples:
   python -m cilqr_tpu_torch.run mpc --cycles 20
   python -m cilqr_tpu_torch.run scenario --seed 3 --out /tmp/scn.npz
   python -m cilqr_tpu_torch.run plan --config overrides.json
+  python -m cilqr_tpu_torch.run dist --batch 1024          # every card
+  python -m cilqr_tpu_torch.run dist --cpu --devices 2 --batch 4 --f64
+  python -m cilqr_tpu_torch.run dist --num-processes 8 --process-id 0 \
+      --coordinator host0:29500                            # one rank
 
 Every command runs on the card unless ``--cpu``; ``--f64`` plans in
 double precision. The reference plans from an RViz click with a fixed
 start state (planning_node.cc:24-27,82); ``plan`` runs the same fixed
 pedestrian_test case headlessly and draws matplotlib figures (``--out``,
 ``--animate``; matplotlib is imported only then) in place of RViz
-markers. ``dist`` (the sharded batch over several processes) is not
-ported yet: it raises NotImplementedError.
+markers. ``dist`` runs the full replan sharded over ranks
+(dist.sharded_pipeline_step): ``--devices N`` starts N ranks on this host,
+one a card under NCCL (0 = every card), or N gloo ranks on the CPU with
+``--cpu``; with ``--num-processes`` > 1 this invocation is the one rank
+``--process-id`` of a group whose rank 0 serves its store at
+``--coordinator`` (host:port), and on a host of several cards it takes
+card ``LOCAL_RANK`` (the process id if unset).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
+
+START = (0.0, 0.0, 0.0, 10.0)
+# seconds the local ranks of ``run dist`` may take, start-up included
+DIST_TIMEOUT_S = 3600.0
 
 
 def _load_config(path):
@@ -33,6 +48,102 @@ def _load_config(path):
         return PlannerConfig()
     with open(path) as f:
         return from_dict(json.load(f))
+
+
+def _settings(args):
+    """(dtype, config, RoadSpec or None) of a command's flags."""
+    import numpy as np
+    import torch
+
+    from . import scenario
+
+    cfg = _load_config(args.config)
+    # the CLI always plans on the generated pedestrian_test road, so its
+    # closed-form RoadSpec is known: frenet mode takes the finite barrier
+    # test and the closed-form station fields (dp.plan)
+    spec = (scenario.analytic_road_spec(
+        dtype=np.float64 if args.f64 else np.float32)
+        if cfg.dp.collision_mode == "frenet" else None)
+    return torch.float64 if args.f64 else torch.float32, cfg, spec
+
+
+def _dist_rank(rank, world, coordinator, args, threads=None):
+    """One rank of ``run dist``: join the group (NCCL on the rank's card,
+    gloo with --cpu), make the batch of scenarios seed..seed+B on the host,
+    take this rank's rows and run the sharded replan on them; rank 0
+    prints the summed statistics. ``threads``: the CPU threads of this
+    rank (None: PyTorch's default)."""
+    import torch
+
+    from . import pipeline, scenario
+    from .dist import (init_distributed, make_batch_mesh, shard_batch,
+                       sharded_pipeline_step)
+    from .profiling import synchronize
+    from .world import build_barrier_grid
+
+    if threads:
+        torch.set_num_threads(threads)
+    init_distributed(coordinator, world, rank,
+                     backend="gloo" if args.cpu else None)
+    try:
+        mesh = make_batch_mesh("cpu" if args.cpu else None)
+        dtype, cfg, spec = _settings(args)
+        n_dev = mesh.size
+        B = args.batch - args.batch % n_dev or n_dev
+        scns = scenario.make_scenario_batch(
+            range(args.seed, args.seed + B), dtype=dtype, device="cpu")
+        grid = (build_barrier_grid(scns.barrier_xy[0], cfg.dp.grid_cell,
+                                   dtype=dtype, device=mesh.device)
+                if cfg.dp.collision_mode == "grid" else None)
+        lane = pipeline.make_lane_tuple(scns.left_barrier_xy[0],
+                                        scns.right_barrier_xy[0], cfg)
+        starts = torch.tensor(START, dtype=dtype).repeat(B, 1)
+        step = sharded_pipeline_step(cfg, mesh, grid, lane, road_spec=spec)
+        scns, starts = shard_batch(mesh, (scns, starts))
+        synchronize(mesh.device)
+        t0 = time.perf_counter()
+        _, stats = step(scns, starts)
+        synchronize(mesh.device)
+        wall = time.perf_counter() - t0
+        stats = {k: float(v) for k, v in stats.items()}
+        if mesh.rank == 0:
+            print(f"mesh={n_dev} batch={B} wall={wall:.2f}s stats={stats}",
+                  flush=True)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _dist(args):
+    """``run dist``: this process as one rank (--num-processes > 1), or
+    --devices ranks started here, which meet through a file store in a
+    temporary directory (no port to pick or collide on)."""
+    if args.num_processes > 1:
+        if not args.coordinator:
+            raise SystemExit("run dist: --num-processes > 1 needs "
+                             "--coordinator host:port (rank 0's store)")
+        _dist_rank(args.process_id, args.num_processes, args.coordinator,
+                   args)
+        return 0
+    import torch
+
+    from .dist import launch_local
+
+    n = args.devices or (1 if args.cpu else
+                         max(torch.cuda.device_count(), 1))
+    threads = None
+    if args.cpu:                        # the ranks share this host's cores
+        threads = max(1, (os.cpu_count() or 1) // n)
+    else:
+        # once here: every rank would otherwise run nvcc itself
+        from .kernels import _build
+
+        _build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        launch_local(_dist_rank, n,
+                     (n, f"file://{os.path.join(tmp, 'store')}", args,
+                      threads), timeout=DIST_TIMEOUT_S)
+    return 0
 
 
 def _add_common(p):
@@ -72,19 +183,24 @@ def _parser():
     _add_common(p_scn)
     p_scn.add_argument("--out", type=str, required=True)
 
-    p_dist = sub.add_parser("dist", help="sharded batch (not ported yet)")
+    p_dist = sub.add_parser(
+        "dist", help="sharded full replan over ranks with summed stats")
     _add_common(p_dist)
     p_dist.add_argument("--batch", type=int, default=64)
+    p_dist.add_argument("--devices", type=int, default=0,
+                        help="ranks on this host (0 = every card; 1 with "
+                             "--cpu)")
+    p_dist.add_argument("--coordinator", type=str, default="",
+                        help="host:port of rank 0's store (multi-process)")
+    p_dist.add_argument("--num-processes", type=int, default=1)
+    p_dist.add_argument("--process-id", type=int, default=0)
     return ap
 
 
 def main(argv=None):
     args = _parser().parse_args(argv)
     if args.cmd == "dist":
-        raise NotImplementedError(
-            "run dist, the sharded batch over several processes, is not "
-            "ported yet (ROADMAP.md, queue 1: dist.py on torch.distributed, "
-            "with run.py dist and its multi-process flags)")
+        return _dist(args)
 
     import numpy as np
     import torch
@@ -94,15 +210,7 @@ def main(argv=None):
     from .types import SolverStatus
 
     device = "cpu" if args.cpu else "cuda"
-    dtype = torch.float64 if args.f64 else torch.float32
-    start = (0.0, 0.0, 0.0, 10.0)
-    cfg = _load_config(args.config)
-    # the CLI always plans on the generated pedestrian_test road, so its
-    # closed-form RoadSpec is known: frenet mode takes the finite barrier
-    # test and the closed-form station fields (dp.plan)
-    spec = (scenario.analytic_road_spec(
-        dtype=np.float64 if args.f64 else np.float32)
-        if cfg.dp.collision_mode == "frenet" else None)
+    dtype, cfg, spec = _settings(args)
 
     if args.cmd == "scenario":
         from . import checkpoint
@@ -116,7 +224,7 @@ def main(argv=None):
         scn = scenario.make_scenario(args.seed, dtype=dtype, device=device)
         synchronize(device)
         t0 = time.perf_counter()
-        out = pipeline.plan(scn, start, cfg, spec=spec)
+        out = pipeline.plan(scn, START, cfg, spec=spec)
         synchronize(device)
         dt_ms = (time.perf_counter() - t0) * 1e3
         hits = out.solve_hits.cpu().numpy()
@@ -167,7 +275,7 @@ def main(argv=None):
                                       dtype=dtype, device=device)
         lane = pipeline.make_lane_tuple(scns.left_barrier_xy[0].cpu(),
                                         scns.right_barrier_xy[0].cpu(), cfg)
-        starts = torch.tensor(start, dtype=dtype, device=device).repeat(
+        starts = torch.tensor(START, dtype=dtype, device=device).repeat(
             args.batch, 1)
         synchronize(device)
         t0 = time.perf_counter()
@@ -187,7 +295,7 @@ def main(argv=None):
 
         scn = scenario.make_scenario(args.seed, dtype=dtype, device=device)
         t0 = time.perf_counter()
-        results = run_mpc(scn, start, cfg, args.cycles, spec=spec)
+        results = run_mpc(scn, START, cfg, args.cycles, spec=spec)
         synchronize(device)
         wall = time.perf_counter() - t0
         statuses = [SolverStatus(int(r.solve.status)).name for r in results]

@@ -1,7 +1,7 @@
 """The port's user entry points on the CPU: checkpoint files read both ways
 with the JAX package, bench_prep's per-seed prep against the JAX
-package's, the CLI's commands at small sizes, its figures, and ``run
-dist`` refusing.
+package's, the CLI's commands at small sizes and its figures (``run
+dist``: tests/test_torch_dist.py).
 
 Tolerances: checkpoints exact (the same arrays, types and key names);
 bench_prep in float32 against JAX's jitted prep of the same seed (the
@@ -201,11 +201,6 @@ def test_cli_scenario_batch_mpc(tmp_path, capsys):
     lines = capsys.readouterr().out
     assert "batch=2" in lines and "statuses:" in lines
     assert "mpc cycles=1" in lines and "corridor_ok=2/2" in lines, lines
-
-
-def test_cli_dist_raises():
-    with pytest.raises(NotImplementedError, match="dist.py"):
-        TRun.main(["dist", "--cpu"])
 
 
 def test_profiling_on_the_cpu():

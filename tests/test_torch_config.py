@@ -57,7 +57,7 @@ def test_import_does_not_load_jax():
             "cilqr_tpu_torch.kernels.megasolve, cilqr_tpu_torch.run, "
             "cilqr_tpu_torch.bench_prep, cilqr_tpu_torch.checkpoint, "
             "cilqr_tpu_torch.profiling, cilqr_tpu_torch.viz, "
-            "cilqr_tpu_torch.pscan, chip_smoke\n"
+            "cilqr_tpu_torch.pscan, cilqr_tpu_torch.dist, chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'cilqr_tpu.')) or m == 'cilqr_tpu']\n"
             "assert not bad, bad\n"
