@@ -25,6 +25,7 @@ from .config import PlannerConfig
 from .costs import (ConstraintSet, shrink_and_normalize, tighten_constraints,
                     total_cost, trim_constraints)
 from .geometry import hypot, normalize_angle
+from .reference_line import arc_lengths
 from .solver import transform_goals
 from .types import (CorridorSet, Scenario, SolveResult, SolverStatus, Traj,
                     _Fields)
@@ -75,9 +76,7 @@ def traj_from_solution(xs, us, dt, wheel_base) -> Traj:
     n = xs.shape[-2]
     t = (dt * torch.arange(n, dtype=xs.dtype, device=xs.device)).expand(
         xs.shape[:-1])
-    seg = hypot(torch.diff(xs[..., 0]), torch.diff(xs[..., 1]))
-    s = torch.cat([torch.zeros_like(seg[..., :1]), torch.cumsum(seg, -1)],
-                  dim=-1)
+    s = arc_lengths(hypot(torch.diff(xs[..., 0]), torch.diff(xs[..., 1])))
     us_full = torch.cat([us, torch.zeros_like(us[..., :1, :])], dim=-2)
     zeros = torch.zeros_like(t)
     return Traj(time=t, s=s, x=xs[..., 0], y=xs[..., 1], theta=xs[..., 2],
@@ -150,9 +149,8 @@ def brake_goals(goals, gamma):
     polyline (same start point), velocities scaled by gamma and
     accelerations by gamma^2 (kinematic re-timing)."""
     N = goals.shape[-2]
-    seg = hypot(torch.diff(goals[..., 0]), torch.diff(goals[..., 1]))
-    s = torch.cat([torch.zeros_like(seg[..., :1]), torch.cumsum(seg, -1)],
-                  dim=-1).contiguous()
+    s = arc_lengths(hypot(torch.diff(goals[..., 0]),
+                          torch.diff(goals[..., 1]))).contiguous()
     s2 = (gamma * s).contiguous()
     idx = torch.clamp(torch.searchsorted(s, s2, right=True) - 1, 0, N - 2)
 

@@ -209,6 +209,22 @@ def get_cartesian(traj: Traj, station, lateral):
             ref.y + lateral * torch.cos(ref.theta))
 
 
+def arc_lengths(seg):
+    """Accumulated lengths [0, seg_0, seg_0 + seg_1, ...] of segments
+    [..., P] along the last axis: [..., P + 1]. Each row is summed in one
+    fixed order, from its first segment on, in float64 and rounded to
+    seg's type at each knot (what PyTorch's CPU cumsum computes). The
+    card's cumsum sizes its scan tree by the number of rows, so there a
+    row's sums would depend on the batch it sits in."""
+    seg64 = seg.to(torch.float64)
+    acc = torch.zeros_like(seg64[..., 0])
+    out = [acc]
+    for i in range(seg.shape[-1]):
+        acc = acc + seg64[..., i]
+        out.append(acc)
+    return torch.stack(out, dim=-1).to(seg.dtype)
+
+
 def compute_path_profile(dt, xs, ys):
     """Finite-difference path profile from xy points [..., P]: headings,
     accumulated s, speeds, accelerations, kappas
@@ -224,9 +240,7 @@ def compute_path_profile(dt, xs, ys):
     dys = central_diff(ys)
     headings = torch.atan2(dys, dxs)
 
-    seg = torch.sqrt(torch.diff(xs) ** 2 + torch.diff(ys) ** 2)
-    s = torch.cat([torch.zeros_like(xs[..., :1]), torch.cumsum(seg, -1)],
-                  dim=-1)
+    s = arc_lengths(torch.sqrt(torch.diff(xs) ** 2 + torch.diff(ys) ** 2))
 
     speeds = torch.diff(s) / dt
     speeds = torch.cat([speeds, speeds[..., -1:]], dim=-1)

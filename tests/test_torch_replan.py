@@ -27,7 +27,11 @@ to JAX's functions on the port's replan, op by op. The tolerances:
 - total_cost within 1e-9 relative;
 - plan_batch lane for lane: ok, pre-repair and final near-term hits,
   repaired, still_dirty identical; status and iterations identical on at
-  least 3 of the 4 lanes, controls within 1e-6 on those.
+  least 3 of the 4 lanes, controls within 1e-6 on those;
+- the ladder's cold round alone (JAX's _repair_batch, jitted, from the
+  port's pre-repair state): the same write-back, re-check and statuses;
+- the port's replan with the compaction cascade against the shared one
+  without it: the same safety flags, decisions on at least 3 of 4 lanes.
 """
 
 import dataclasses
@@ -45,6 +49,7 @@ from cilqr_tpu import geometry as JG
 from cilqr_tpu import pipeline as JP
 from cilqr_tpu import reference_line as JR
 from cilqr_tpu import scenario as JS
+from cilqr_tpu import types as JT
 from cilqr_tpu import world as JW
 from cilqr_tpu.config import PlannerConfig as JPlannerConfig
 from cilqr_tpu.types import Traj as JTraj
@@ -572,6 +577,99 @@ def test_repair_writes_back_first_occurrences(scn, port_plan, monkeypatch):
     assert torch.isfinite(res.xs).all()
     assert repaired.tolist() == port_plan.repaired.tolist()
     assert not still.any()
+
+
+def _same_safety(got, want):
+    """ok, pre-repair and final near-term hits, repaired and still dirty
+    identical lane for lane."""
+    for f in ("ok", "repaired", "still_dirty"):
+        np.testing.assert_array_equal(_np(getattr(got, f)),
+                                      _np(getattr(want, f)), err_msg=f)
+    for f in ("pre_hits", "solve_hits"):
+        np.testing.assert_array_equal(_np(getattr(got, f))[:, :NEAR],
+                                      _np(getattr(want, f))[:, :NEAR],
+                                      err_msg=f)
+
+
+def test_cold_repair_round_matches_jax(jscn, scn, port_dp):
+    """The ladder's cold round (margin 1.0 from the LQR guess, at the cold
+    stop tolerances and iteration cap: the default ladder's round 1, 70%
+    of a blast replan on the card) on DIRTY_SEED's lane, the port's
+    _repair_batch against JAX's, the one plan_batch calls, from the same
+    pre-repair state (the port's DP, corridors, main solve and re-check on
+    SEEDS). At the default ladder the warm round repairs that lane and the
+    cold round never runs, so the ladder here is the cold round alone;
+    jitted, JAX compiles that round's solve and nothing else. At the
+    cold tolerance the rel-cost stop is threshold-chaotic (its iteration
+    count moves under a 1e-12 change of the lane's goals), so the repaired
+    lane's iterations and controls are not held; its status, the
+    write-back and the re-check are, and the other lanes' solves."""
+    kw = dict(margins=JPlannerConfig().repair.margins[1:2],
+              cold_restart_from=0)
+    cfg = dataclasses.replace(CFG, repair=dataclasses.replace(CFG.repair,
+                                                              **kw))
+    jcfg = dataclasses.replace(JCFG, repair=dataclasses.replace(JCFG.repair,
+                                                                **kw))
+    assert TP._repair_rounds(cfg.repair) == [(1.0, False, 1.0)]
+    d, c = port_dp
+    spec = TS.analytic_road_spec(dtype=np.float64)
+    cons = TP.prep_constraints(c, CFG)
+    goals = TP.coarse_to_states(d.traj)
+    s6 = TP.start_states(torch.tensor([[0.0, 0.0, 0.0, 10.0]] * len(SEEDS),
+                                      dtype=F64), F64)
+    res = TP.solve_batch(goals, s6, cons, CFG.ilqr, CFG.vehicle, CFG.delta_t)
+    hits = TP._recheck_solution(scn, res.xs, CFG, spec)
+    dirty = [s == DIRTY_SEED for s in SEEDS]
+    assert _np(hits[:, :NEAR].any(-1)).tolist() == dirty
+    got, got_hits, got_rep, got_still = TP._repair_batch(
+        scn, res, hits, goals, s6, cons, cfg, spec)
+
+    def j(v):
+        return jnp.asarray(_np(v))
+
+    jres = JT.SolveResult(
+        xs=j(res.xs), us=j(res.us), status=j(res.status), iters=j(res.iters),
+        cost=JT.CostBreakdown(*(j(v) for v in (
+            res.cost.total, res.cost.target, res.cost.dynamic,
+            res.cost.corridor, res.cost.lane))),
+        lam=j(res.lam), init_xs=j(res.init_xs), init_us=j(res.init_us),
+        lane_clipped=j(res.lane_clipped))
+    jspec = JS.analytic_road_spec(dtype=np.float64)
+    want, want_hits, want_rep, want_still = jax.jit(
+        lambda r, h, g, s, k: JP._repair_batch(jscn, r, h, g, s, k, jcfg,
+                                               jspec))(
+        jres, j(hits), j(goals), j(s6), JCo.ConstraintSet(*map(j, cons)))
+    np.testing.assert_array_equal(_np(got_rep), np.asarray(want_rep))
+    np.testing.assert_array_equal(_np(got_still), np.asarray(want_still))
+    np.testing.assert_array_equal(_np(got_hits)[:, :NEAR],
+                                  np.asarray(want_hits)[:, :NEAR])
+    assert _np(got_rep).tolist() == dirty and not got_still.any()
+    # the repaired lane's status; the others untouched, as in JAX
+    st_j, it_j = np.asarray(want.status), np.asarray(want.iters)
+    np.testing.assert_array_equal(_np(got.status), st_j)
+    same = _np(got.iters) == it_j
+    assert same.sum() >= 3, (_np(got.iters), it_j)
+    du = np.abs(_np(got.us) - np.asarray(want.us)).max(axis=(1, 2))
+    assert du[same].max() <= 1e-6, du
+
+
+def test_cascade_keeps_the_replan_safety(scn, port_plan):
+    """The replan with the compaction cascade on (compaction_phase1=3, the
+    default) against the shared replan without it: the same safety flags
+    lane for lane, decisions on at least 3 of the 4 lanes. No JAX."""
+    cfg = dataclasses.replace(CFG, ilqr=dataclasses.replace(
+        CFG.ilqr, compaction_phase1=PlannerConfig().ilqr.compaction_phase1))
+    assert cfg.ilqr.compaction_phase1 == 3
+    lane = TP.make_lane_tuple(scn.left_barrier_xy[0], scn.right_barrier_xy[0],
+                              cfg)
+    starts = torch.tensor([[0.0, 0.0, 0.0, 10.0]] * len(SEEDS), dtype=F64)
+    got = TP.plan_batch(scn, starts, cfg, None, lane,
+                        spec=TS.analytic_road_spec(dtype=np.float64))
+    _same_safety(got, port_plan)
+    same = ((got.solve.status == port_plan.solve.status)
+            & (got.solve.iters == port_plan.solve.iters))
+    assert int(same.sum()) >= 3, (same, got.solve.iters,
+                                  port_plan.solve.iters)
 
 
 @pytest.mark.parametrize("margins, cold_from, brake",
