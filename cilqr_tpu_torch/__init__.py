@@ -31,7 +31,8 @@ tested against. Modules keep the JAX package's names and layout:
   convert                             — crossing from the JAX package
   checkpoint                          — npz files in the JAX package's
                                         layout
-  profiling                           — stage timers, trace capture
+  profiling                           — the tracer (spans, counters),
+                                        timers, trace capture
   viz                                 — matplotlib figures (imported
                                         lazily)
   bench_prep, run                     — the fixture generator and the

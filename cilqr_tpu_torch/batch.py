@@ -10,9 +10,11 @@ import numpy as np
 import torch
 
 from .costs import ConstraintSet
+from .profiling import spanned
 from .types import SolveResult, SolverStatus
 
 
+@spanned("solve")
 def solve_batch(goals, starts, cons: ConstraintSet, cfg, veh, dt,
                 warm_start=None, backend: str = "blast") -> SolveResult:
     """Batched CILQR solve over a leading batch axis on every input.

@@ -19,6 +19,7 @@ import torch
 
 from .config import CorridorConfig
 from .geometry import convex_hull_masked, hypot, sample_polygon_edges
+from .profiling import span, spanned, upload
 from .types import CorridorSet, Scenario, Traj
 from .world import query_dynamic_points_grid
 
@@ -301,6 +302,7 @@ def lane_constraints(left_barrier: np.ndarray, right_barrier: np.ndarray,
     return lp, lsg, lm, rp, rsg, rm
 
 
+@spanned("corridors")
 def plan_corridors(scns: Scenario, traj: Traj, cfg: CorridorConfig,
                    lane: tuple) -> CorridorSet:
     """Corridor::Plan (corridor.cc:17-54) for a batch: per-knot corridors
@@ -314,17 +316,18 @@ def plan_corridors(scns: Scenario, traj: Traj, cfg: CorridorConfig,
     chunk = max(1, PAIRS_PER_CHUNK // (N * K1 * K1))
     parts = []
     for i in range(0, B, chunk):
-        scn = scns.map(lambda a: a[i:i + chunk])
-        tr = traj.map(lambda a: a[i:i + chunk])
-        dyn = query_dynamic_points_grid(scn, tr.time)
-        pts, mask = corridor_seed_points(scn, tr.x, tr.y, tr.theta, cfg,
-                                         cfg.max_points, dyn)
-        parts.append(build_corridor(tr.x, tr.y, pts, mask, cfg,
-                                    cfg.max_constraints))
+        with span("corridors.chunk"):
+            scn = scns.map(lambda a: a[i:i + chunk])
+            tr = traj.map(lambda a: a[i:i + chunk])
+            dyn = query_dynamic_points_grid(scn, tr.time)
+            pts, mask = corridor_seed_points(scn, tr.x, tr.y, tr.theta, cfg,
+                                             cfg.max_points, dyn)
+            parts.append(build_corridor(tr.x, tr.y, pts, mask, cfg,
+                                        cfg.max_constraints))
     planes, pmask, polys, polymask, ok = (torch.cat(v) for v in zip(*parts))
 
     def shared(a):
-        a = torch.as_tensor(a, device=dev)
+        a = upload(a, device=dev)
         if a.is_floating_point():
             a = a.to(dtype)
         return a.expand((B,) + a.shape)

@@ -17,6 +17,7 @@ import torch
 from .barriers import make_barrier
 from .config import IlqrConfig, VehicleParam
 from .geometry import point_segment_distance
+from .profiling import host
 from .types import CostBreakdown
 
 
@@ -85,12 +86,13 @@ def tighten_constraints(cons: ConstraintSet, margin) -> ConstraintSet:
 
 
 def trim_constraints(cons: ConstraintSet, multiple: int = 8) -> ConstraintSet:
-    """Trim padded constraint slots no problem uses (host-side): slice to
-    the highest valid slot, rounded up to ``multiple``. Exact for any mask
+    """Trim padded constraint slots no problem uses (host-side, one read of
+    each mask's used slots): slice to the highest valid slot, rounded up to
+    ``multiple``. Exact for any mask
     pattern, since everything dropped is masked out."""
 
     def hi(mask):
-        used = mask.reshape(-1, mask.shape[-1]).any(dim=0)
+        used = host(mask.reshape(-1, mask.shape[-1]).any(dim=0))
         idx = torch.nonzero(used).flatten()
         n = int(idx[-1]) + 1 if idx.numel() else 1
         return min(mask.shape[-1], -(-n // multiple) * multiple)

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from .profiling import upload
+
 TWO_PI = 2.0 * math.pi
 
 
@@ -247,7 +249,7 @@ def _chain_membership(sx, sy, valid):
     pair = ((q[:, None] < q[None, :]) & valid[..., :, None]
             & valid[..., None, :])
     slope = dy / dx                                    # +inf for vertical
-    inf = torch.tensor(math.inf, dtype=sx.dtype, device=sx.device)
+    inf = upload(math.inf, dtype=sx.dtype, device=sx.device)
     lo_fill = torch.where(pair, slope, -inf)
     hi_fill = torch.where(pair, slope, inf)
     max_l = lo_fill.amax(dim=-2)                       # [..., k]
@@ -277,7 +279,7 @@ def convex_hull_masked(pts, mask, return_indices: bool = False,
     then upper chain descending minus its leftmost)."""
     K = pts.shape[-2]
     dev = pts.device
-    big = torch.tensor(1e30, dtype=pts.dtype, device=dev)
+    big = upload(1e30, dtype=pts.dtype, device=dev)
     px = pts[..., 0]
     py = pts[..., 1]
     idx = torch.arange(K, device=dev)

@@ -36,6 +36,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import profiling
 from . import _build
 
 MAX_DISCS = 8  # csrc/coststack.cu: MAX_D
@@ -292,13 +293,10 @@ def _launch(xs, ops: StackOperands, offs, bt, beps, want_derivs,
              ctypes.c_void_p(torch.cuda.current_stream(xs.device)
                              .cuda_stream))
     _build.check(err, "corridor_lane_stack")
-    corridor_lane_stack.launches += 1
-    corridor_lane_stack.widths[B] = corridor_lane_stack.widths.get(B, 0) + 1
+    profiling.tally("corridor_lane_stack.launches")
+    profiling.tally(f"corridor_lane_stack.width.{B}")
     return tuple(out.unbind(0)) + ((sel,) if want_sel else ())
 
-
-corridor_lane_stack.launches = 0
-corridor_lane_stack.widths = {}   # launches by batch width B
 
 
 def sqrt_fast_check(device="cuda"):

@@ -40,6 +40,7 @@ from types import SimpleNamespace
 
 import torch
 
+from .. import profiling
 from ..costs import ConstraintSet
 from ..solver import iqr_init, transform_goals
 from ..types import CostBreakdown, SolveResult, SolverStatus
@@ -609,7 +610,7 @@ def _launch(goals, xs0, us0, ca, cb, cc, laneL, laneR, cfg, veh, dt,
              ctypes.cast(ptrs_c, ctypes.c_void_p),
              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "solve_batch_mega")
-    solve_batch_mega.launches += 1
+    profiling.tally("solve_batch_mega.launches")
     return xs, us, fs, istate, block_trips
 
 
@@ -702,27 +703,31 @@ def _operands(goals_bf, starts, cons, cfg, veh, dt, warm_start, block_nb):
     """The kernel's batch-last operands (goals, xs0, us0, ca, cb, cc, laneL,
     laneR), padded to a multiple of block_nb with copies of lane 0; and the
     initial guess (xs0, us0), batch-first and unpadded."""
-    _check_inputs(goals_bf, starts, cons, cfg, block_nb)
-    B0 = goals_bf.shape[0]
-    goals_first = transform_goals(goals_bf, starts)
+    with profiling.span("solve.operands"):
+        _check_inputs(goals_bf, starts, cons, cfg, block_nb)
+        B0 = goals_bf.shape[0]
+        goals_first = transform_goals(goals_bf, starts)
     if warm_start is None:
-        xs0_bf, us0_bf = iqr_init(goals_first, cfg, veh, dt)
+        with profiling.span("solve.guess"):
+            xs0_bf, us0_bf = iqr_init(goals_first, cfg, veh, dt)
     else:
         xs0_bf, us0_bf = warm_start
-    gp, xp, up, cp = goals_first, xs0_bf, us0_bf, cons
-    pad = (-B0) % block_nb
-    if pad:
-        def padded(a):
-            return torch.cat([a, a[:1].expand((pad,) + a.shape[1:])])
+    with profiling.span("solve.operands"):
+        gp, xp, up, cp = goals_first, xs0_bf, us0_bf, cons
+        pad = (-B0) % block_nb
+        if pad:
+            def padded(a):
+                return torch.cat([a, a[:1].expand((pad,) + a.shape[1:])])
 
-        gp, xp, up = padded(gp), padded(xp), padded(up)
-        cp = cons.map(padded)
+            gp, xp, up = padded(gp), padded(xp), padded(up)
+            cp = cons.map(padded)
 
-    def bl(a):                        # batch-first -> batch-last
-        return a.movedim(0, -1).contiguous()
+        def bl(a):                        # batch-first -> batch-last
+            return a.movedim(0, -1).contiguous()
 
-    folded = _fold_constraints(cp, goals_bf.dtype)
-    return tuple(bl(a) for a in (gp, xp, up) + folded), (xs0_bf, us0_bf)
+        folded = _fold_constraints(cp, goals_bf.dtype)
+        ops = tuple(bl(a) for a in (gp, xp, up) + folded)
+    return ops, (xs0_bf, us0_bf)
 
 
 def _solve(run, goals_bf, starts, cons, cfg, veh, dt, warm_start, block_nb):
@@ -731,7 +736,15 @@ def _solve(run, goals_bf, starts, cons, cfg, veh, dt, warm_start, block_nb):
     ops, (xs0_bf, us0_bf) = _operands(goals_bf, starts, cons, cfg, veh, dt,
                                       warm_start, block_nb)
     B0 = goals_bf.shape[0]
-    xs, us, fs, istate, block_trips = run(*ops, cfg, veh, dt, block_nb)
+    with profiling.span("solve.kernel"):
+        xs, us, fs, istate, block_trips = run(*ops, cfg, veh, dt, block_nb)
+    if profiling.active():
+        # the trips of real lanes only: a padding lane's are waste
+        profiling.count("mega.launches", 1)
+        profiling.count("mega.lane_trips", istate[2, :B0])
+        profiling.count("mega.relins", istate[3, :B0])
+        profiling.count("mega.block_trips", block_trips)
+        profiling.count("mega.block_lanes", block_trips * block_nb)
 
     def bf(a):                        # batch-last -> batch-first
         return a.movedim(-1, 0)[:B0]
@@ -753,13 +766,11 @@ def solve_batch_mega(goals_bf, starts, cons: ConstraintSet, cfg, veh, dt,
     cons leaves [B, ...]). Pads the batch to a multiple of block_nb with
     copies of lane 0 (padding lanes solve and are dropped). CUDA tensors
     launch the kernel, once per call (or raise); CPU tensors take the plain
-    version. ``solve_batch_mega.launches`` counts the launches."""
+    version. Each launch adds one to ``profiling.counters``'
+    ``"solve_batch_mega.launches"``."""
     run = _launch if goals_bf.device.type == "cuda" else solve_batch_mega_ref
     return _solve(run, goals_bf, starts, cons, cfg, veh, dt, warm_start,
                   block_nb)[0]
-
-
-solve_batch_mega.launches = 0
 
 
 def solve_batch_mega_plain(goals_bf, starts, cons: ConstraintSet, cfg, veh,

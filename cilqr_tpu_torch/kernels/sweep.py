@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from .. import profiling
 from . import _build
 from .megasolve import _backward, _forward_step, _step_constants
 
@@ -122,12 +123,9 @@ def riccati_sweep(lam, alpha, A, Bm, Jx, Ju, Hx, Hu, xs, us,
              ctypes.c_void_p(torch.cuda.current_stream(lam.device)
                              .cuda_stream))
     _build.check(err, "riccati_sweep")
-    riccati_sweep.launches += 1
-    riccati_sweep.widths[B] = riccati_sweep.widths.get(B, 0) + 1
+    profiling.tally("riccati_sweep.launches")
+    profiling.tally(f"riccati_sweep.width.{B}")
     if not stacked:
         return nxs[0], nus[0], dv[0], dv[1], dv[2]
     return tuple(nxs.unbind(0)), tuple(nus.unbind(0)), dv[0], dv[1], dv[2]
 
-
-riccati_sweep.launches = 0
-riccati_sweep.widths = {}   # launches by batch width B

@@ -21,6 +21,7 @@ from . import corridor as corridor_mod
 from . import pipeline as pipeline_mod
 from .batch import solve_batch
 from .config import PlannerConfig
+from .profiling import spanned
 from .types import Scenario, SolveResult, Traj, _Fields
 
 
@@ -104,6 +105,7 @@ def _cycle_problem(scns: Scenario, carry: MpcCarry, cfg: PlannerConfig,
                                                                       cfg)
 
 
+@spanned("mpc_step_batch")
 def mpc_step_batch(scns: Scenario, carry: MpcCarry, cfg: PlannerConfig,
                    lane, backend: str = "blast", spec=None
                    ) -> tuple[MpcCarry, MpcStepOut]:

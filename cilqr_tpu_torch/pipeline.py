@@ -25,6 +25,7 @@ from .config import PlannerConfig
 from .costs import (ConstraintSet, shrink_and_normalize, tighten_constraints,
                     total_cost, trim_constraints)
 from .geometry import hypot, normalize_angle
+from .profiling import count, host, span, spanned
 from .reference_line import arc_lengths
 from .solver import transform_goals
 from .types import (CorridorSet, Scenario, SolveResult, SolverStatus, Traj,
@@ -95,6 +96,7 @@ def make_lane_tuple(left_barrier, right_barrier, cfg: PlannerConfig,
                                          cfg.corridor, dtype)
 
 
+@spanned("recheck")
 def _recheck_solution(scns: Scenario, xs, cfg: PlannerConfig, spec,
                       t0=None):
     """Per-knot collision mask [B, N] of optimized trajectories xs
@@ -206,6 +208,7 @@ def repair_width(B: int, max_fraction: float) -> int:
     return min(B, w)
 
 
+@spanned("repair")
 def _repair_batch(scns: Scenario, res: SolveResult, hits, goals_b, starts6,
                   cons: ConstraintSet, cfg: PlannerConfig, spec, t0=None,
                   backend: str = "blast", eligible=None):
@@ -235,46 +238,57 @@ def _repair_batch(scns: Scenario, res: SolveResult, hits, goals_b, starts6,
     R = repair_width(B, rep.max_fraction)
     dev = goals_b.device
     repaired = torch.zeros(B, dtype=torch.bool, device=dev)
-    for margin, warm, gamma in _repair_rounds(rep):
+    for rnd, (margin, warm, gamma) in enumerate(_repair_rounds(rep)):
         dirty = hits[:, :near].any(-1)
         if eligible is not None:
             dirty = dirty & eligible
-        n_dirty = int(dirty.sum())
+        n_dirty = int(host(dirty.sum()))
         if n_dirty == 0:     # a clean batch pays nothing for the round
             continue
-        order = torch.argsort((~dirty).to(torch.uint8), stable=True)
-        idx = order[torch.arange(R, device=dev) % n_dirty]
-        g_cons = cons.map(lambda a: a[idx])
-        ws = (res.xs[idx], res.us[idx]) if warm else None
-        g_goals = goals_b[idx]
-        if gamma < 1.0:
-            g_goals = brake_goals(g_goals, gamma)
-        res_r = solve_batch(g_goals, starts6[idx],
-                            tighten_constraints(g_cons, margin),
-                            _repair_ilqr_cfg(cfg, warm), cfg.vehicle,
-                            cfg.delta_t, warm_start=ws, backend=backend)
-        hits_r = _recheck_solution(scns.map(lambda a: a[idx]), res_r.xs, cfg,
-                                   spec, t0=None if t0 is None else t0[idx])
-        # the repaired trajectory's cost under the PRODUCTION constraints
-        # (the re-solve's own is against the tightened problem)
-        res_r.cost = total_cost(res_r.xs, res_r.us,
-                                transform_goals(goals_b[idx], starts6[idx]),
-                                g_cons, cfg.ilqr, cfg.vehicle)
-        k = min(n_dirty, R)          # first occurrences: positions < k
-        lanes = idx[:k]
-        use = (~hits_r[:k, :near].any(-1)) & _success(res_r.status[:k])
+        kind = "warm" if warm else "cold" if gamma == 1.0 else "brake"
+        with span("repair.round", round=rnd, n_dirty=n_dirty, R=R,
+                  kind=kind):
+            order = torch.argsort((~dirty).to(torch.uint8), stable=True)
+            idx = order[torch.arange(R, device=dev) % n_dirty]
+            g_cons = cons.map(lambda a: a[idx])
+            ws = (res.xs[idx], res.us[idx]) if warm else None
+            g_goals = goals_b[idx]
+            if gamma < 1.0:
+                g_goals = brake_goals(g_goals, gamma)
+            res_r = solve_batch(g_goals, starts6[idx],
+                                tighten_constraints(g_cons, margin),
+                                _repair_ilqr_cfg(cfg, warm), cfg.vehicle,
+                                cfg.delta_t, warm_start=ws, backend=backend)
+            hits_r = _recheck_solution(
+                scns.map(lambda a: a[idx]), res_r.xs, cfg, spec,
+                t0=None if t0 is None else t0[idx])
+            # the repaired trajectory's cost under the PRODUCTION constraints
+            # (the re-solve's own is against the tightened problem)
+            res_r.cost = total_cost(
+                res_r.xs, res_r.us,
+                transform_goals(goals_b[idx], starts6[idx]), g_cons,
+                cfg.ilqr, cfg.vehicle)
+            k = min(n_dirty, R)          # first occurrences: positions < k
+            lanes = idx[:k]
+            use = ((~hits_r[:k, :near].any(-1))
+                   & _success(res_r.status[:k]))
 
-        def put(full, part):
-            u = use.reshape((k,) + (1,) * (part.dim() - 1))
-            return full.index_copy(0, lanes,
-                                   torch.where(u, part[:k], full[lanes]))
+            def put(full, part):
+                u = use.reshape((k,) + (1,) * (part.dim() - 1))
+                return full.index_copy(0, lanes,
+                                       torch.where(u, part[:k], full[lanes]))
 
-        res = res.map(put, res_r)
-        hits = put(hits, hits_r)
-        repaired = repaired.index_copy(0, lanes, repaired[lanes] | use)
+            res = res.map(put, res_r)
+            hits = put(hits, hits_r)
+            repaired = repaired.index_copy(0, lanes, repaired[lanes] | use)
+        count("repair.rounds", 1)
+        count("repair.lanes_dirty", min(n_dirty, R))
+        count("repair.lanes_launched", R)
+        count("repair.lanes_replaced", use)
     return res, hits, repaired, hits[:, :near].any(-1)
 
 
+@spanned("corridors.prep")
 def prep_constraints(cors: CorridorSet, cfg: PlannerConfig) -> ConstraintSet:
     """The solve's constraints from the corridors: shrink and normalize
     (ilqr_optimizer.cc:438-495), then padded slots no lane uses trimmed
@@ -303,6 +317,7 @@ def start_states(starts, dtype):
     return torch.cat([starts, torch.zeros_like(starts[:, :2])], dim=-1)
 
 
+@spanned("plan_batch")
 def plan_batch(scns: Scenario, starts, cfg: PlannerConfig, grid=None,
                lane=None, backend: str = "blast", spec=None) -> PlanOutput:
     """The full replan for a batch: DP -> corridors -> constraint prep ->

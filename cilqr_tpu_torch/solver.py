@@ -30,6 +30,7 @@ from .config import IlqrConfig, VehicleParam
 from .costs import ConstraintSet, cost_derivatives, total_cost
 from .geometry import normalize_angle
 from .model import dynamics_jacobian, dynamics_rk2
+from .profiling import host, span, upload
 from .types import CostBreakdown, SolveResult, SolverStatus, _Fields
 
 
@@ -60,9 +61,9 @@ def iqr_init(goals, cfg: IlqrConfig, veh: VehicleParam, dt):
     dynamics. goals [B, N, 6] -> (xs [B, N, 6], us [B, N-1, 2])."""
     dtype, device = goals.dtype, goals.device
     B, N = goals.shape[0], goals.shape[1]
-    Q = torch.diag(torch.tensor([0.001, 0.001, 0.001, 0.001, 0.01, 0.005],
-                                dtype=dtype, device=device))
-    R = torch.diag(torch.tensor([0.2, 0.05], dtype=dtype, device=device))
+    Q = torch.diag(upload([0.001, 0.001, 0.001, 0.001, 0.01, 0.005],
+                          dtype=dtype, device=device))
+    R = torch.diag(upload([0.2, 0.05], dtype=dtype, device=device))
 
     zero_u = torch.zeros((B, N - 1, 2), dtype=dtype, device=device)
     A, Bm = dynamics_jacobian(goals[:, :-1], zero_u, dt, veh.wheel_base,
@@ -77,10 +78,10 @@ def iqr_init(goals, cfg: IlqrConfig, veh: VehicleParam, dt):
         P = Q + Ai.transpose(1, 2) @ P @ (Ai - Bi @ K)
         Ks[t] = K
 
-    jlo = torch.tensor([veh.jerk_min, veh.delta_rate_min], dtype=dtype,
-                       device=device)
-    jhi = torch.tensor([veh.jerk_max, veh.delta_rate_max], dtype=dtype,
-                       device=device)
+    jlo = upload([veh.jerk_min, veh.delta_rate_min], dtype=dtype,
+                 device=device)
+    jhi = upload([veh.jerk_max, veh.delta_rate_max], dtype=dtype,
+                 device=device)
     x = goals[:, 0]
     xs, us = [x], []
     for t in range(N - 1):
@@ -170,8 +171,9 @@ def _where(mask, new, old):
 
 
 def _any(mask) -> bool:
-    """One device-to-host sync: is any lane of ``mask`` set?"""
-    return bool(mask.any())
+    """One device-to-host sync (``profiling.host``): is any lane of
+    ``mask`` set?"""
+    return bool(host(mask.any()))
 
 
 def _batched(coarse_xs, start_state, cons, warm_start):
@@ -187,7 +189,8 @@ def _init(coarse_xs, start_state, cons, cfg: IlqrConfig, veh: VehicleParam,
     initial carry."""
     goals = transform_goals(coarse_xs, start_state)
     if warm_start is None:
-        xs0, us0 = iqr_init(goals, cfg, veh, dt)
+        with span("solve.guess"):
+            xs0, us0 = iqr_init(goals, cfg, veh, dt)
     else:
         xs0, us0 = (w.to(goals.dtype) for w in warm_start)
     B = goals.shape[0]

@@ -27,6 +27,7 @@ from .config import IlqrConfig, VehicleParam
 from .costs import ConstraintSet
 from .geometry import normalize_angle, point_segment_distance
 from .kernels.coststack import StackOperands, gather_windows
+from .profiling import host, span, tally
 from .solver import iqr_init, transform_goals
 from .types import CostBreakdown, SolveResult, SolverStatus
 
@@ -577,13 +578,9 @@ def _tree_map(fn, first, *rest):
 
 
 def _any(mask) -> bool:
-    """One device-to-host sync: is any element of ``mask`` set?
-    ``_any.syncs`` counts the calls."""
-    _any.syncs += 1
-    return bool(mask.any())
-
-
-_any.syncs = 0
+    """One device-to-host sync (``profiling.host``): is any element of
+    ``mask`` set?"""
+    return bool(host(mask.any()))
 
 
 def _make_body(goals, cbl, cfg: IlqrConfig, veh: VehicleParam, dt):
@@ -740,7 +737,8 @@ def _run_carry(carry: _CarryBL, goals, cbl, cfg, veh, dt,
     trip_cap > 0 additionally bounds the number of loop TRIPS (line-search
     steps), handing stragglers to the compaction cascade; lanes resume
     mid-line-search via the aidx carry, so per-lane decisions are
-    unchanged. ``_run_carry.trips`` counts the trips run."""
+    unchanged. ``profiling.counters``' ``"blast.trips"`` counts the trips
+    run."""
     body = _make_body(goals, cbl, cfg, veh, dt)
     c = carry
     trips = 0
@@ -749,11 +747,8 @@ def _run_carry(carry: _CarryBL, goals, cbl, cfg, veh, dt,
             break
         c = body(c)
         trips += 1
-    _run_carry.trips += trips
+    tally("blast.trips", trips)
     return c
-
-
-_run_carry.trips = 0
 
 
 def _bl(a):
@@ -774,7 +769,8 @@ def _prep(goals_bf, starts, cons, cfg, veh, dt, warm_start):
     B = goals_bf.shape[0]
     goals_first = transform_goals(goals_bf, starts)
     if warm_start is None:
-        xs0_bf, us0_bf = iqr_init(goals_first, cfg, veh, dt)
+        with span("solve.guess"):
+            xs0_bf, us0_bf = iqr_init(goals_first, cfg, veh, dt)
     else:
         xs0_bf, us0_bf = warm_start
     goals = _bl(goals_first)                               # [6, N, B]

@@ -27,6 +27,7 @@ import torch
 
 from .geometry import (_first_valid_fill, box_corners, convex_overlap,
                        convex_overlap_aabb, hypot, point_in_oriented_box)
+from .profiling import upload
 from .types import Scenario
 
 K_MATH_EPS = 1e-10
@@ -307,7 +308,7 @@ def dilate_polys(polys, mask, half, rect: bool = False) -> DilatedPolys:
     pn = (px[..., None, :] * ey[..., :, None]
           - py[..., None, :] * ex[..., :, None])
     hn = half * (ey.abs() + ex.abs())
-    big = torch.tensor(math.inf, dtype=polys.dtype, device=polys.device)
+    big = upload(math.inf, dtype=polys.dtype, device=polys.device)
     k = 2 if rect else pts.shape[-2]
     return DilatedPolys(
         nx=ey[..., :k], ny=-ex[..., :k],

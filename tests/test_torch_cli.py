@@ -204,19 +204,19 @@ def test_cli_scenario_batch_mpc(tmp_path, capsys):
 
 
 def test_profiling_on_the_cpu():
-    """StageTimer, timed and trace with the CPU as their device (nothing to
-    synchronise there); trace records the host's operations."""
+    """span, timed and trace with the CPU as their device (nothing to
+    synchronise there): a span is a no-op while the tracer is off and,
+    inside tracing(), a profiler range that trace records beside the
+    host's operations, with its host time; trace records the operations."""
     x = torch.ones(64, 64)
-    st = TPr.StageTimer(device="cpu")
-    with st.stage("mm"):
+    with TPr.span("solve"):
         x @ x
-    with st.stage("mm"):
-        x @ x
-    assert list(st.times) == ["mm"] and st.times["mm"] > 0
-    assert st.report().startswith("mm: ")
     best, out = TPr.timed(lambda a: a @ a, x, reps=2, device="cpu")
     assert best > 0 and torch.equal(out, x @ x)
-    with TPr.trace(cuda=False) as prof:
-        x @ x
+    with TPr.tracing(), TPr.trace(cuda=False) as prof:
+        with TPr.span("solve"):
+            x @ x
     assert any("mm" in e.key for e in prof.key_averages())
-    assert TPr.device_busy(prof, 1.0) == (0.0, [])
+    assert any(e.key == "solve" for e in prof.key_averages())
+    st = TPr.collect().spans["solve"]
+    assert st.count == 1 and st.inclusive_s > 0 and st.device_s is None

@@ -25,6 +25,7 @@ from cilqr_tpu.pallas.megasolve import _fold_constraints as jax_fold
 from cilqr_tpu.pallas.megasolve import solve_batch_mega as jax_mega
 from cilqr_tpu.solver_blast import solve_batch_bl as jax_blast
 from cilqr_tpu_torch import batch as TB
+from cilqr_tpu_torch import profiling as TPr
 from cilqr_tpu_torch.config import PlannerConfig
 from cilqr_tpu_torch.convert import FIXTURE, constraints_from_numpy
 from cilqr_tpu_torch.kernels import megasolve as TM
@@ -83,10 +84,11 @@ def jax_mega_01(raw):
 
 def test_mega_matches_jax_megakernel(raw, jax_mega_01):
     rj = jax_mega_01
-    before = TM.solve_batch_mega.launches
+    before = TPr.counters["solve_batch_mega.launches"]
     rt = TM.solve_batch_mega(*_torch_inputs(raw, 2), CFG.ilqr, CFG.vehicle,
                              CFG.delta_t, block_nb=2)
-    assert TM.solve_batch_mega.launches == before      # CPU: plain version
+    # the CPU takes the plain version
+    assert TPr.counters["solve_batch_mega.launches"] == before
     np.testing.assert_array_equal(rt.status.numpy(), np.asarray(rj.status))
     np.testing.assert_array_equal(rt.iters.numpy(), np.asarray(rj.iters))
     np.testing.assert_array_equal(rt.iters.numpy(), [12, 6])
@@ -189,10 +191,10 @@ def test_solve_batch_backend_mega_on_cpu(raw):
     in a block of 2."""
     g, s, c = _torch_inputs(raw, 2)
     ilqr, _ = _ilqr(max_iter_num=1)
-    before = TM.solve_batch_mega.launches
+    before = TPr.counters["solve_batch_mega.launches"]
     rt = TB.solve_batch(g, s, c, ilqr, CFG.vehicle, CFG.delta_t,
                         backend="mega")
-    assert TM.solve_batch_mega.launches == before
+    assert TPr.counters["solve_batch_mega.launches"] == before
     ops = TM._operands(g, s, c, ilqr, CFG.vehicle, CFG.delta_t, None,
                        TM.NB)[0]
     assert all(a.shape[-1] == TM.NB for a in ops)

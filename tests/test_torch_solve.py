@@ -27,12 +27,10 @@ from cilqr_tpu.config import IlqrConfig, PlannerConfig, VehicleParam
 from cilqr_tpu.costs import ConstraintSet as JConstraintSet
 from cilqr_tpu.costs import trim_constraints as jax_trim
 from cilqr_tpu_torch import batch as TB
-from cilqr_tpu_torch import solver_blast as TSB
+from cilqr_tpu_torch import profiling as TPr
 from cilqr_tpu_torch.convert import (FIXTURE, config_from_dict,
                                      constraints_from_numpy, load_fixture,
                                      result_to_numpy)
-from cilqr_tpu_torch.kernels import coststack as TCS
-from cilqr_tpu_torch.kernels import sweep as TSW
 
 from test_native_parity import _problem
 from torch_shared import shared
@@ -161,12 +159,13 @@ def test_solve_through_kernel_wrappers_on_cpu(fixture_runs):
     cfg = PlannerConfig()
     ilqr = dataclasses.replace(cfg.ilqr, sweep_backend="pallas",
                                cost_stack_backend="pallas")
-    before = (TSW.riccati_sweep.launches, TCS.corridor_lane_stack.launches)
-    trips = TSB._run_carry.trips
+    before = (TPr.counters["riccati_sweep.launches"],
+              TPr.counters["corridor_lane_stack.launches"])
+    trips = TPr.counters["blast.trips"]
     rt = TB.solve_batch(g, s, c, ilqr, cfg.vehicle, cfg.delta_t)
-    assert (TSW.riccati_sweep.launches,
-            TCS.corridor_lane_stack.launches) == before
-    assert TSB._run_carry.trips > trips
+    assert (TPr.counters["riccati_sweep.launches"],
+            TPr.counters["corridor_lane_stack.launches"]) == before
+    assert TPr.counters["blast.trips"] > trips
     _fixture_decisions(rt, rj)
 
 

@@ -15,6 +15,7 @@ import torch
 
 from cilqr_tpu import solver_blast as JSB
 from cilqr_tpu.pallas.sweep import riccati_sweep as jax_riccati_sweep
+from cilqr_tpu_torch import profiling as TPr
 from cilqr_tpu_torch import solver_blast as TSB
 from cilqr_tpu_torch.kernels import sweep as TSW
 
@@ -89,10 +90,10 @@ def test_sweep_wrapper_on_cpu_is_the_plain_version():
     _, (lam, alpha, A, Bm, Jx, Ju, Hx, Hu, xs_cm, us_cm) = _inputs(4)
     args = (lam, torch.stack([alpha, 0.5 * alpha]), A, Bm, Jx, Ju, Hx, Hu,
             xs_cm.movedim(0, 1), us_cm.movedim(0, 1))
-    before = TSW.riccati_sweep.launches
+    before = TPr.counters["riccati_sweep.launches"]
     got = TSW.riccati_sweep(*args, dt=DT, wheel_base=L)
     want = TSW.riccati_sweep_ref(*args, dt=DT, wheel_base=L)
-    assert TSW.riccati_sweep.launches == before
+    assert TPr.counters["riccati_sweep.launches"] == before
     for g, w in zip(got[0] + got[1] + got[2:], want[0] + want[1] + want[2:]):
         assert torch.equal(g, w)
 

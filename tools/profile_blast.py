@@ -6,8 +6,9 @@ cost-stack kernels), on one NVIDIA GPU, under ``torch.profiler``.
 Prints:
   - device milliseconds by kernel name (the profiler's CUDA activities),
     with their launch counts, and their total;
-  - the blast kernels' launches per cascade width (the wrappers' counts);
-  - the solve's trips and host syncs;
+  - the blast kernels' launches per cascade width (the wrappers' counts
+    in ``profiling.counters``);
+  - the solve's trips and host syncs (the program's tracer on);
   - the device busy share: the union of the solve's device activity over
     the wall time of the same solve without the profiler (host clock, after
     a warm-up solve, each ended by a synchronize).
@@ -48,9 +49,7 @@ def main():
         sys.exit("profile_blast: no CUDA device; this tool runs only on a GPU")
     sys.path.insert(0, ROOT)
     import cilqr_tpu_torch as P
-    from chip_smoke import smi_line
-    from cilqr_tpu_torch import solver_blast as SB
-    from cilqr_tpu_torch.kernels import coststack, sweep
+    from chip_smoke import launch_widths, reset_counts, smi_line
 
     smi = smi_line()
     print(f"card name, power limit (nvidia-smi): {smi}", flush=True)
@@ -72,21 +71,22 @@ def main():
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = min(walls)
 
-    wrappers = {"riccati_sweep": sweep.riccati_sweep,
-                "corridor_lane_stack": coststack.corridor_lane_stack}
-    for fn in wrappers.values():
-        fn.launches, fn.widths = 0, {}
-    SB._run_carry.trips = 0
-    SB._any.syncs = 0
+    reset_counts()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with P.profiling.tracing(), \
+            torch.profiler.profile(activities=acts) as prof:
         res = solve()
+    traced = P.profiling.collect().counters
+    trips, syncs = traced["blast.trips"], traced["host_syncs"]
     conv = int(torch.isin(res.status, torch.tensor(
         [1, 2, 3], device=res.status.device)).sum())
 
+    # the tracer's ranges are mirrored onto the device's timeline as user
+    # annotations: host ranges, not device work
     dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
     if not dev_events:
         sys.exit("profile_blast: the profiler recorded no device time")
     by_name = {}
@@ -98,7 +98,7 @@ def main():
     kernel_total = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
     busy = busy_union_us(dev_events) / 1e3
     print(f"blast solve, fixture B={B} float32: converged {conv}/{B}; "
-          f"trips {SB._run_carry.trips}, host syncs {SB._any.syncs}")
+          f"trips {trips}, host syncs {syncs}")
     print(f"device activities: {len(dev_events)}, summed {kernel_total:.3f} "
           f"ms, busy (union) {busy:.3f} ms; wall without the profiler "
           f"{wall:.1f} ms (best of {[round(w, 1) for w in walls]}): device "
@@ -106,11 +106,11 @@ def main():
     print(f"device ms by kernel name (top {TOP} of {len(rows)}):")
     for key, count, us in rows[:TOP]:
         print(f"  {us / 1e3:10.3f} ms  {count:7d} x  {key[:100]}")
-    widths = {name: dict(sorted(fn.widths.items(), reverse=True))
-              for name, fn in wrappers.items()}
+    widths = {name: launch_widths(name)
+              for name in ("riccati_sweep", "corridor_lane_stack")}
     print(f"launches by cascade width: {widths}")
-    print(json.dumps({"card": smi, "B": B, "trips": SB._run_carry.trips,
-                      "host_syncs": SB._any.syncs, "converged": conv,
+    print(json.dumps({"card": smi, "B": B, "trips": trips,
+                      "host_syncs": syncs, "converged": conv,
                       "device_busy_ms": busy, "device_summed_ms":
                       kernel_total, "wall_ms": wall,
                       "busy_share": busy / wall,

@@ -26,7 +26,7 @@ TOP = 6   # kernel names listed per stage
 
 def stages(P, cfg, setup, backend):
     """The replan as four callables, each taking the one before's output
-    (chip_smoke.stage_split's stages)."""
+    (DP, corridors, prep and solve, re-check and repair)."""
     from cilqr_tpu_torch import batch, corridor, dp, pipeline
 
     scns, starts, lane, spec = setup
