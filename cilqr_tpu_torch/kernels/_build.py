@@ -50,6 +50,9 @@ _SIGNATURES = {
     "solve_batch_mega": [_I] * 8 + [_P] * 4 + [_P],
     # N, S, block_nb, out (host int): clusters the card runs at once
     "mega_active_clusters": [_I] * 3 + [_P],
+    # dims (host int[14]), constants (host double[18]), pointers (host
+    # array of 15 device pointers), stream
+    "dp_sweep": [_P] * 3 + [_P],
 }
 
 

@@ -42,7 +42,7 @@ import torch
 
 # every span the program opens; the first dotted component is its layer
 SPANS = ("plan_batch", "mpc_step_batch",
-         "dp", "dp.chunk", "dp.layers", "dp.trace_back",
+         "dp", "dp.chunk", "dp.layers", "dp.sweep", "dp.trace_back",
          "corridors", "corridors.chunk", "corridors.prep",
          "solve", "solve.operands", "solve.guess", "solve.kernel",
          "recheck", "repair", "repair.round")
