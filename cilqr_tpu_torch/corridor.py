@@ -302,14 +302,63 @@ def lane_constraints(left_barrier: np.ndarray, right_barrier: np.ndarray,
     return lp, lsg, lm, rp, rsg, rm
 
 
+def lane_constraints_batch(left_barrier, left_mask, right_barrier,
+                           right_mask, cfg: CorridorConfig,
+                           dtype=np.float64):
+    """lane_constraints of R roads in one vectorised pass: per-side
+    polylines [R, NB, 2] padded to the longest, each road's points where
+    its mask [R, NB] is set (a prefix). The greedy resampling steps
+    through the points once for all roads; the six arrays come back
+    stacked [R, S, ...], each road's bit for bit lane_constraints'."""
+    S = cfg.max_lane_segments
+    thresh = cfg.lane_segment_length - 1e-10
+
+    def build(boundary, mask, reverse):
+        pts = np.asarray(boundary)         # in its own type, as one road's
+        valid = np.asarray(mask, bool)
+        R = pts.shape[0]
+        rows = np.arange(R)
+        kept = np.zeros((R, S + 2, 2), pts.dtype)   # a slot past S: overflow
+        kept[:, 0] = pts[:, 0]
+        last = pts[:, 0].copy()
+        n = np.ones(R, np.int64)
+        for j in range(pts.shape[1]):
+            p = pts[:, j]
+            take = valid[:, j] & (np.hypot(p[:, 0] - last[:, 0],
+                                           p[:, 1] - last[:, 1]) >= thresh)
+            kept[rows[take], np.minimum(n[take], S + 1)] = p[take]
+            last[take] = p[take]
+            n += take
+        if int(n.max()) - 1 > S:
+            raise ValueError(f"max_lane_segments={S} < needed "
+                             f"{int(n.max()) - 1}")
+        seg = np.arange(S)[None, :] < (n - 1)[:, None]        # [R, S]
+        s_pt, e_pt = kept[:, :S], kept[:, 1:S + 1]
+        if reverse:
+            s_pt, e_pt = e_pt, s_pt
+        nvec = e_pt - s_pt
+        a, b = nvec[..., 1], -nvec[..., 0]
+        c = a * s_pt[..., 0] + b * s_pt[..., 1]
+        planes = np.where(seg[..., None], np.stack([a, b, c], -1), 0.0)
+        segs = np.where(seg[..., None, None], np.stack([s_pt, e_pt], -2),
+                        0.0)
+        return planes.astype(dtype), segs.astype(dtype), seg
+
+    lp, lsg, lm = build(left_barrier, left_mask, True)
+    rp, rsg, rm = build(right_barrier, right_mask, False)
+    return lp, lsg, lm, rp, rsg, rm
+
+
 @spanned("corridors")
 def plan_corridors(scns: Scenario, traj: Traj, cfg: CorridorConfig,
                    lane: tuple) -> CorridorSet:
     """Corridor::Plan (corridor.cc:17-54) for a batch: per-knot corridors
     along the coarse trajectories [B, N], and the lane constraints
-    (``lane``: lane_constraints' six arrays, shared by the batch),
-    broadcast over it. Scenarios are processed in chunks of
-    PAIRS_PER_CHUNK hull pairs."""
+    (``lane``: lane_constraints' six arrays of the batch's one road,
+    broadcast over it; or, where each lane is on a road of its own, the
+    six with the batch axis leading, each lane's own road's, as
+    pipeline.lane_roads gathers them). Scenarios are processed in chunks
+    of PAIRS_PER_CHUNK hull pairs."""
     B, N = traj.x.shape
     dev, dtype = traj.x.device, traj.x.dtype
     K1 = cfg.max_points + 1
@@ -326,11 +375,14 @@ def plan_corridors(scns: Scenario, traj: Traj, cfg: CorridorConfig,
                                         cfg.max_constraints))
     planes, pmask, polys, polymask, ok = (torch.cat(v) for v in zip(*parts))
 
+    per_lane = lane[2].ndim == 2          # masks [B, S], or [S] shared
+
     def shared(a):
-        a = upload(a, device=dev)
+        # a lane's own road's arrays are gathered on the device already
+        a = a.to(dev) if per_lane else upload(a, device=dev)
         if a.is_floating_point():
             a = a.to(dtype)
-        return a.expand((B,) + a.shape)
+        return a if per_lane else a.expand((B,) + a.shape)
 
     lp, lsg, lm, rp, rsg, rm = (shared(a) for a in lane)
     return CorridorSet(

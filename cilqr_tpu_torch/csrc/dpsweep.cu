@@ -15,7 +15,10 @@
 // grid mode with the BarrierGrid's dilated table for the probe's half
 // (world.barrier_box_hit_dilated). Its station lookup is the plain path's:
 // the RoadSpec's closed-form rows wherever a spec is given, grid mode
-// included, else the scenario's packed centerline rows.
+// included, else the scenario's packed centerline rows. Where each
+// scenario is on a road of its own (world.LaneGrid), its CTA reads its own
+// road's table out of one pool, by the scenario's offset, H, W and origin,
+// and its own count of centerline rows (a shorter road's rows are padded).
 //
 // Exactness: bit-identical to the plain path on the card. Every operation
 // is one of common.cuh's separately rounded ones, in the plain path's
@@ -60,6 +63,9 @@
 //   the groups' minima sit in shared memory; the station table's packed
 //   rows and the grid's int8 table are read from global memory through
 //   L1/L2. Obstacles too many for a CTA's shared memory fail the launch.
+// - A scenario's road (its rows, its table and the table's geometry) is
+//   resolved once, at the CTA's start, into registers (Table); a batch on
+//   one road and a batch on many take the same instructions after that.
 
 #include <algorithm>
 #include <cmath>
@@ -109,8 +115,11 @@ struct DpArgs {
   const T *rows;                  // [B, n_rows, kRow] (packed rows)
   const T *seg_f, *bar;           // [G, kSegF], [G, kBar] (RoadSpec)
   const int *seg_i;               // [G, kSegI]
-  const signed char *grid;        // [4, Hp, Wp]
-  const void *origin;             // [2], T or double (grid_wide)
+  const signed char *grid;        // [4, Hp, Wp], or every road's (pool)
+  const void *origin;             // [2] or [B, 2] (pool), T or double
+  // a road per scenario (null for one road): table offset, H and W
+  const long long *lane_off, *lane_hw;   // [B], [B, 2]
+  const long long *lane_rows;     // [B] centerline rows (null: n_rows)
   // outputs, [NT, B, NS * NL]
   T *cost, *curs;
   long long *psind, *plind;
@@ -182,12 +191,17 @@ __device__ __forceinline__ Ref<T> between(const DpArgs<T>& a, const Ref<T>& r0,
   return o;
 }
 
-// The station table of a scenario (no RoadSpec): uniform_station_index,
-// then the two packed rows.
+// The road of a scenario: its station table (no RoadSpec:
+// uniform_station_index, then the two packed rows; n its own rows) and its
+// dilated grid table (the table, its padded size and its origin).
 template <typename T>
 struct Table {
   const T* rows;
   T s0, h;
+  long long n;
+  const signed char* grid;
+  long long Hp, Wp;
+  const void* origin;
 };
 
 template <typename T>
@@ -205,7 +219,7 @@ __device__ __forceinline__ Ref<T> table_row(const T* r) {
 template <typename T, bool FULL>
 __device__ Ref<T> eval_table(const DpArgs<T>& a, const Table<T>& tb, T s) {
   long long idx = (long long)ceil(div_rn(sub_rn(s, tb.s0), tb.h));
-  idx = clamp_ll(idx, 1, a.n_rows - 1);
+  idx = clamp_ll(idx, 1, tb.n - 1);
   const T* r0 = tb.rows + (idx - 1) * kRow;
   const T* r1 = r0 + kRow;
   return between<T, FULL>(a, table_row(r0), table_row(r1), __ldg(r0),
@@ -337,20 +351,21 @@ __device__ __forceinline__ long long cell_index(W v, W o, W c) {
 
 // world.barrier_box_hit_dilated for the box of half-size a.half at (cx, cy)
 template <typename T>
-__device__ bool grid_hit(const DpArgs<T>& a, T cx, T cy) {
+__device__ bool grid_hit(const DpArgs<T>& a, const Table<T>& tb, T cx,
+                         T cy) {
   const T minx = sub_rn(cx, a.half);
   const T maxx = add_rn(cx, a.half);
   const T miny = sub_rn(cy, a.half);
   const T maxy = add_rn(cy, a.half);
   long long iy, jx, iy1, jx1;
   if (a.grid_wide) {
-    const double* o = static_cast<const double*>(a.origin);
+    const double* o = static_cast<const double*>(tb.origin);
     iy = cell_index<double>(miny, __ldg(o + 1), a.cell_d);
     jx = cell_index<double>(minx, __ldg(o), a.cell_d);
     iy1 = cell_index<double>(maxy, __ldg(o + 1), a.cell_d);
     jx1 = cell_index<double>(maxx, __ldg(o), a.cell_d);
   } else {
-    const T* o = static_cast<const T*>(a.origin);
+    const T* o = static_cast<const T*>(tb.origin);
     iy = cell_index<T>(miny, __ldg(o + 1), a.cell_t);
     jx = cell_index<T>(minx, __ldg(o), a.cell_t);
     iy1 = cell_index<T>(maxy, __ldg(o + 1), a.cell_t);
@@ -359,19 +374,20 @@ __device__ bool grid_hit(const DpArgs<T>& a, T cx, T cy) {
   const int off = a.span + 2;
   const long long ga = clamp_ll(iy1 - iy - a.span, 0, 1);
   const long long gb = clamp_ll(jx1 - jx - a.span, 0, 1);
-  const long long iyc = clamp_ll(iy + off, 0, a.Hp - 1);
-  const long long jxc = clamp_ll(jx + off, 0, a.Wp - 1);
-  return __ldg(a.grid + ((ga * 2 + gb) * a.Hp + iyc) * a.Wp + jxc) > 0;
+  const long long iyc = clamp_ll(iy + off, 0, tb.Hp - 1);
+  const long long jxc = clamp_ll(jx + off, 0, tb.Wp - 1);
+  return __ldg(tb.grid + ((ga * 2 + gb) * tb.Hp + iyc) * tb.Wp + jxc) > 0;
 }
 
 // One disc's box against the static slabs, the road and the dynamic slabs
 // at the point's probe time (world.check_optimization_collision: box_hit)
 template <typename T, bool SROAD>
-__device__ __forceinline__ bool box_hit(const DpArgs<T>& a, const T* sst,
+__device__ __forceinline__ bool box_hit(const DpArgs<T>& a,
+                                        const Table<T>& tb, const T* sst,
                                         const T* sdyn, T cx, T cy) {
   for (int k = 0; k < a.KS; ++k)
     if (slab_hit(sst + k * kSlab, cx, cy)) return true;
-  if (SROAD ? road_spec_hit(a, cx, cy) : grid_hit(a, cx, cy))
+  if (SROAD ? road_spec_hit(a, cx, cy) : grid_hit(a, tb, cx, cy))
     return true;
   for (int k = 0; k < a.KD; ++k)
     if (slab_hit(sdyn + k * kSlab, cx, cy)) return true;
@@ -396,10 +412,10 @@ __device__ bool point_bad(const DpArgs<T>& a, const Table<T>& tb,
       T(atan(div_rn(div_rn(dl, ds), sub_rn(T(1), mul_rn(f.kappa, l))))));
   const T ct = T(cos(heading));
   const T st = T(sin(heading));
-  if (box_hit<T, SROAD>(a, sst, sdyn, add_rn(cx, mul_rn(ct, a.f2x)),
+  if (box_hit<T, SROAD>(a, tb, sst, sdyn, add_rn(cx, mul_rn(ct, a.f2x)),
                        add_rn(cy, mul_rn(st, a.f2x))))
     return true;
-  return box_hit<T, SROAD>(a, sst, sdyn, add_rn(cx, mul_rn(ct, a.r2x)),
+  return box_hit<T, SROAD>(a, tb, sst, sdyn, add_rn(cx, mul_rn(ct, a.r2x)),
                           add_rn(cy, mul_rn(st, a.r2x)));
 }
 
@@ -477,11 +493,36 @@ dp_sweep_kernel(const DpArgs<T> a) {
   Table<T> tb;
   tb.rows = nullptr;
   tb.s0 = tb.h = T(0);
+  tb.n = a.n_rows;
+  tb.grid = a.grid;
+  tb.Hp = a.Hp;
+  tb.Wp = a.Wp;
+  tb.origin = a.origin;
+  if (a.lane_off != nullptr) {
+    // this scenario's road out of the pool (world.lane_grid)
+    const long long off = a.span + 2;
+    tb.grid = a.grid + __ldg(a.lane_off + b);
+    tb.Hp = __ldg(a.lane_hw + 2 * b) + 2 * off;
+    tb.Wp = __ldg(a.lane_hw + 2 * b + 1) + 2 * off;
+    tb.origin = a.grid_wide
+                    ? static_cast<const void*>(
+                          static_cast<const double*>(a.origin) + 2 * b)
+                    : static_cast<const void*>(
+                          static_cast<const T*>(a.origin) + 2 * b);
+  }
   if (!SROWS) {
+    // its own rows of a padded table: h by the reciprocal of its count,
+    // formed in T, as PyTorch divides by a host scalar on the card
+    // (reference_line._div_rows)
+    T inv_nm1 = a.inv_nm1;
+    if (a.lane_rows != nullptr) {
+      tb.n = __ldg(a.lane_rows + b);
+      inv_nm1 = div_rn(T(1), T(tb.n - 1));
+    }
     tb.rows = a.rows + (size_t)b * a.n_rows * kRow;
     tb.s0 = __ldg(tb.rows);
-    tb.h = mul_rn(sub_rn(__ldg(tb.rows + (size_t)(a.n_rows - 1) * kRow), tb.s0),
-                  a.inv_nm1);
+    tb.h = mul_rn(sub_rn(__ldg(tb.rows + (size_t)(tb.n - 1) * kRow), tb.s0),
+                  inv_nm1);
   }
   const T* dslab = a.dslab + (size_t)b * a.TK * a.KD * kSlab;
   copy_in(sst, a.sslab + (size_t)b * a.KS * kSlab, a.KS * kSlab);
@@ -616,11 +657,13 @@ int start_kernel(const DpArgs<T>& a, size_t smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// dims: B NT NS NL KS KD TK mode n_rows G span Hp Wp grid_wide
+// dims: B NT NS NL KS KD TK mode n_rows G span Hp Wp grid_wide (Hp, Wp
+//       unused with a road per scenario)
 // consts: unit_time safe_margin eps half r2x f2x w_obs w_lat w_lc w_lvc
 //         w_lvb w_lvch nominal h lb rb kappa0 cell
 // ptrs: s0 l0 station sslab dslab rows seg_f seg_i bar grid origin
-//       cost curs psind plind
+//       cost curs psind plind lane_off lane_hw lane_rows (the last three
+//       null for one road and unpadded rows)
 template <typename T>
 int launch(const int* dims, const double* consts, void* const* ptrs,
            void* stream) {
@@ -689,6 +732,9 @@ int launch(const int* dims, const double* consts, void* const* ptrs,
   a.curs = static_cast<T*>(ptrs[12]);
   a.psind = static_cast<long long*>(ptrs[13]);
   a.plind = static_cast<long long*>(ptrs[14]);
+  a.lane_off = static_cast<const long long*>(ptrs[15]);
+  a.lane_hw = static_cast<const long long*>(ptrs[16]);
+  a.lane_rows = static_cast<const long long*>(ptrs[17]);
 
   // shared memory: the slabs and the layers' state, then the parent
   // groups' minima, as many groups (at most one a parent) as the card's

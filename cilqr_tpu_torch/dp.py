@@ -46,7 +46,8 @@ from .reference_line import (DP_FIELDS, compute_path_profile,
                              get_projection, pack_station_rows)
 from .profiling import count, host, span, spanned, upload
 from .types import Scenario, Traj
-from .world import check_optimization_collision, dilate_polys, dyn_polys_at
+from .world import (LaneGrid, check_optimization_collision, dilate_polys,
+                    dyn_polys_at)
 
 K_EPS_LOCAL = 1e-3   # dp_planner.cpp:29 (file-local kMathEpsilon)
 
@@ -64,11 +65,12 @@ class DpResult(NamedTuple):
     sel_l: torch.Tensor      # [B, NT] winning lateral indices
 
 
-def _lateral_offset(cl: Traj, s, l_ind, safe_margin, nl, packed=None):
+def _lateral_offset(cl: Traj, s, l_ind, safe_margin, nl, packed=None,
+                    rows=None):
     """GetLateralOffset (dp_planner.h:84-92): l_ind == NL-1 -> centerline;
     else lb + (ub-lb) * linspace(0,1,NL-1)[l_ind], from the table."""
     ref = evaluate_station_fields(cl, s, ("left_bound", "right_bound"),
-                                  packed=packed)
+                                  packed=packed, rows=rows)
     lb = -ref["right_bound"] + safe_margin
     ub = ref["left_bound"] - safe_margin
     frac = l_ind.to(s.dtype) / (nl - 2)
@@ -157,13 +159,20 @@ def _check_spec(spec, cl: Traj, packed):
 
 @spanned("dp")
 def plan(scns: Scenario, start_x, start_y, start_theta, cfg: PlannerConfig,
-         grid=None, spec=None) -> DpResult:
+         grid=None, spec=None, rows=None) -> DpResult:
     """DpPlanner::Plan (dp_planner.cpp:135-281) for a batch of scenarios
     (leading axis B) and start poses [B].
 
     grid: the road's world.BarrierGrid, required in ``collision_mode``
     "grid" (built with ``half`` = the vehicle radius, the probes take its
-    one-gather dilated table), ignored in the other modes.
+    one-gather dilated table), or where each scenario is on its own road a
+    world.LaneGrid (each probe reads its scenario's table); ignored in the
+    other modes.
+
+    rows [B]: each scenario's centerline row count where the scenarios'
+    tables are padded to one length (roads of unequal length;
+    reference_line.centerline_rows), None = every row. A RoadSpec
+    describes one road, and takes no rows.
 
     spec: the road's scenario.RoadSpec (the path bench.py runs): every
     station lookup of the decision path is closed-form
@@ -175,14 +184,18 @@ def plan(scns: Scenario, start_x, start_y, start_theta, cfg: PlannerConfig,
     if cfg.dp.collision_mode == "grid" and grid is None:
         raise ValueError("DP collision mode 'grid' needs the road's "
                          "BarrierGrid (world.build_barrier_grid)")
+    if spec is not None and rows is not None:
+        raise ValueError("a RoadSpec describes one road: scenarios on roads "
+                         "of their own (rows) take none")
     s = scns.centerline.s
     if dpsweep.takes_kernel(s.device, s.dtype, cfg, grid, spec):
-        return _plan_sweep(scns, start_x, start_y, cfg, grid, spec)
-    return _plan_plain(scns, start_x, start_y, start_theta, cfg, grid, spec)
+        return _plan_sweep(scns, start_x, start_y, cfg, grid, spec, rows)
+    return _plan_plain(scns, start_x, start_y, start_theta, cfg, grid, spec,
+                       rows)
 
 
 def _plan_plain(scns: Scenario, start_x, start_y, start_theta,
-                cfg: PlannerConfig, grid, spec) -> DpResult:
+                cfg: PlannerConfig, grid, spec, rows=None) -> DpResult:
     """plan's plain path: the batch in chunks of scenarios whose probes
     fit PROBES_PER_CHUNK."""
     B = scns.static_obs.shape[0]
@@ -193,11 +206,17 @@ def _plan_plain(scns: Scenario, start_x, start_y, start_theta,
     chunk = max(1, PROBES_PER_CHUNK // per_scn)
     if chunk >= B:
         return _plan_chunk(scns, start_x, start_y, start_theta, cfg, grid,
-                           spec)
-    parts = [_plan_chunk(scns.map(lambda a, i=i: a[i:i + chunk]),
-                         start_x[i:i + chunk], start_y[i:i + chunk],
-                         start_theta[i:i + chunk], cfg, grid, spec)
-             for i in range(0, B, chunk)]
+                           spec, rows)
+
+    def part(i):
+        sl = slice(i, i + chunk)
+        return _plan_chunk(
+            scns.map(lambda a: a[sl]), start_x[sl], start_y[sl],
+            start_theta[sl], cfg,
+            grid.take(sl) if isinstance(grid, LaneGrid) else grid, spec,
+            None if rows is None else rows[sl])
+
+    parts = [part(i) for i in range(0, B, chunk)]
     return DpResult(
         traj=parts[0].traj.map(lambda *v: torch.cat(v),
                                *(p.traj for p in parts[1:])),
@@ -207,7 +226,7 @@ def _plan_plain(scns: Scenario, start_x, start_y, start_theta,
 
 @spanned("dp.chunk")
 def _plan_chunk(scn: Scenario, start_x, start_y, start_theta,
-                cfg: PlannerConfig, grid, spec) -> DpResult:
+                cfg: PlannerConfig, grid, spec, rows=None) -> DpResult:
     dp = cfg.dp
     NT, NS, NL = dp.nt, dp.ns, dp.nl
     cl = scn.centerline
@@ -234,7 +253,8 @@ def _plan_chunk(scn: Scenario, start_x, start_y, start_theta,
             return evaluate_station_fields_analytic(spec, sv, fields)
     else:
         def eval_f(sv, fields=DP_FIELDS):
-            return evaluate_station_fields(cl, sv, fields, packed=packed)
+            return evaluate_station_fields(cl, sv, fields, packed=packed,
+                                           rows=rows)
 
     def lat_off(s, li):
         ref = eval_f(s, ("left_bound", "right_bound"))
@@ -388,7 +408,7 @@ def _plan_chunk(scn: Scenario, start_x, start_y, start_theta,
 
     with span("dp.trace_back"):
         return _trace_back(cfg, cl, packed, s0, l0, station, costs, cur_ss,
-                           parent_s_inds, parent_l_inds)
+                           parent_s_inds, parent_l_inds, rows)
 
 
 def _probe_times(cfg: PlannerConfig, dtype, dev):
@@ -419,7 +439,7 @@ def _sweep_slabs(scn: Scenario, cfg: PlannerConfig, dtype, dev):
 
 
 def _plan_sweep(scns: Scenario, start_x, start_y, cfg: PlannerConfig, grid,
-                spec) -> DpResult:
+                spec, rows=None) -> DpResult:
     """plan's kernel path: the projection, the packed station rows, the
     spec check and the obstacles' slabs once for the batch, then the layer
     sweep of every scenario in one launch (kernels/dpsweep.py), then the
@@ -442,18 +462,20 @@ def _plan_sweep(scns: Scenario, start_x, start_y, cfg: PlannerConfig, grid,
         with span("dp.sweep"):
             cost, cur_s, ps_ind, pl_ind = dpsweep.dp_sweep(
                 cfg, s0, l0, station, sslab, dslab, packed=packed, grid=grid,
-                spec=spec)
+                spec=spec, rows=rows)
 
     def layers(v):
         return [v[t].reshape(B, NS, NL) for t in range(NT)]
 
     with span("dp.trace_back"):
         return _trace_back(cfg, cl, packed, s0, l0, station, layers(cost),
-                           layers(cur_s), layers(ps_ind), layers(pl_ind))
+                           layers(cur_s), layers(ps_ind), layers(pl_ind),
+                           rows)
 
 
 def _trace_back(cfg: PlannerConfig, cl: Traj, packed, s0, l0, station,
-                costs, cur_ss, parent_s_inds, parent_l_inds) -> DpResult:
+                costs, cur_ss, parent_s_inds, parent_l_inds,
+                rows=None) -> DpResult:
     """The winning path from the layers' costs, accumulated stations and
     parent indices (lists of NT [b, NS, NL] tensors), interpolated to 81
     knots on the centerline table, with its profile."""
@@ -495,12 +517,12 @@ def _trace_back(cfg: PlannerConfig, cl: Traj, packed, s0, l0, station,
         else:
             p_s_i = cell(cur_ss[i - 1], sel_s[i - 1], sel_l[i - 1])
             p_l_i = _lateral_offset(cl, p_s_i, sel_l[i - 1],
-                                    safe_margin, NL, packed)
+                                    safe_margin, NL, packed, rows)
             nseg_i = 16
         st_i = station[sel_s[i]]
         cur_s_i = p_s_i + st_i
         cur_l_i = _lateral_offset(cl, cur_s_i, sel_l[i], safe_margin, NL,
-                                  packed)
+                                  packed, rows)
         sseg, lseg = _interp_sl(p_s_i, p_l_i, st_i, cur_l_i, nseg_i)
         all_s.append(sseg)
         all_l.append(lseg)
@@ -511,7 +533,7 @@ def _trace_back(cfg: PlannerConfig, cl: Traj, packed, s0, l0, station,
     prev_l = torch.cat([l0[:, None], seg_l[:, :-1]], dim=-1)
     dl = seg_l - prev_l
     ds = torch.clamp(seg_s - prev_s, min=K_EPS_LOCAL)
-    ref = evaluate_station_fields(cl, seg_s, packed=packed)
+    ref = evaluate_station_fields(cl, seg_s, packed=packed, rows=rows)
     cx = ref["x"] - seg_l * torch.sin(ref["theta"])
     cy = ref["y"] + seg_l * torch.cos(ref["theta"])
     theta = ref["theta"] + torch.atan((dl / ds)

@@ -7,7 +7,9 @@ tensors, and one of the two road tests the replans run, frenet mode with
 a RoadSpec or grid mode with a BarrierGrid whose dilated table is for the
 probe's half. The station lookup is the plain path's: the RoadSpec's
 closed-form rows wherever a spec is given (grid mode too), else the
-packed centerline rows. Everything else takes the plain path,
+packed centerline rows. Where each scenario is on a road of its own (a
+world.LaneGrid, and the scenarios' row counts), each CTA reads its own
+road's table and rows. Everything else takes the plain path,
 ``dp._plan_chunk``, which this kernel matches bit for bit on the card:
 CPU tensors, exact mode, frenet mode without a RoadSpec, a grid without
 that table, and a RoadSpec in another type than the probes' (the plain
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import profiling
-from ..world import DilatedPolys
+from ..world import DilatedPolys, LaneGrid
 from . import _build
 
 SLAB = 13               # a dilated slab's columns (csrc/dpsweep.cu: kSlab)
@@ -163,7 +165,7 @@ def _ptr(t) -> ctypes.c_void_p:
 
 
 def dp_sweep(cfg, s0, l0, station, sslab, dslab, packed=None, grid=None,
-             spec=None):
+             spec=None, rows=None):
     """The layer sweep of B scenarios in one launch.
 
     s0, l0 [B]: the start's station and lateral; station [NS]; sslab
@@ -171,7 +173,10 @@ def dp_sweep(cfg, s0, l0, station, sslab, dslab, packed=None, grid=None,
     and dynamic obstacles dilated by the vehicle radius, the dynamic ones
     at every layer's probe times (17 for the first layer, then 16 a
     transition); packed [B, rows, 8] the centerline's station rows (read
-    where no spec is given); grid or spec as ``kernel_mode`` takes them.
+    where no spec is given); grid or spec as ``kernel_mode`` takes them: a
+    world.LaneGrid gives each scenario its own road's table; rows [B]
+    (int64) each scenario's centerline row count where ``packed`` is
+    padded (None: all of them).
 
     Returns (cost, cur_s, parent_s_ind, parent_l_ind), [NT, B, NS * NL]
     each, the indices int64 and -1 on the first layer."""
@@ -193,6 +198,9 @@ def dp_sweep(cfg, s0, l0, station, sslab, dslab, packed=None, grid=None,
               "dslab": (dslab, (B, TK, KD, SLAB))}
     if spec is None:
         expect["packed"] = (packed, (B, packed.shape[1], 8))
+    elif rows is not None:
+        raise ValueError("dp_sweep: a RoadSpec describes one road; rows "
+                         "are for padded centerline rows")
     for name, (v, shape) in expect.items():
         if tuple(v.shape) != shape:
             raise ValueError(f"dp_sweep: {name} has shape {tuple(v.shape)}, "
@@ -202,7 +210,8 @@ def dp_sweep(cfg, s0, l0, station, sslab, dslab, packed=None, grid=None,
                              f"expected contiguous {dtype} on {dev}")
     veh = cfg.vehicle
     half = veh.radius + 0.0
-    seg_f = bar = seg_i = rows = table = origin = None
+    seg_f = bar = seg_i = table = origin = None
+    lane_off = lane_hw = lane_rows = None
     G, span, Hp, Wp, wide, cell = 0, 0, 0, 0, 0, 0.0
     h = lb = rb = kappa0 = 0.0
     if spec is not None:
@@ -211,13 +220,18 @@ def dp_sweep(cfg, s0, l0, station, sslab, dslab, packed=None, grid=None,
         h, lb, rb, kappa0 = (float(spec.h), float(spec.lb), float(spec.rb),
                              float(spec.kappa0))
     else:
-        rows = packed
         n_rows = packed.shape[1]
+        if rows is not None:
+            lane_rows = _lanes(rows, B, "rows")
     if mode != SPEC:
-        H = grid.integral.shape[0] - 1
-        W = grid.integral.shape[1] - 1
         span = grid.span
-        Hp, Wp = H + 2 * (span + 2), W + 2 * (span + 2)
+        if isinstance(grid, LaneGrid):
+            lane_off = _lanes(grid.offset, B, "offset")
+            lane_hw = _lanes(grid.hw, B, "hw")
+        else:
+            H = grid.integral.shape[0] - 1
+            W = grid.integral.shape[1] - 1
+            Hp, Wp = H + 2 * (span + 2), W + 2 * (span + 2)
         wd = torch.promote_types(dtype, grid.origin.dtype)
         wide = int(wd == torch.float64 and dtype == torch.float32)
         origin = grid.origin.to(wd).contiguous()
@@ -236,9 +250,10 @@ def dp_sweep(cfg, s0, l0, station, sslab, dslab, packed=None, grid=None,
             torch.empty((NT, B, P), dtype=torch.int64, device=dev),
             torch.empty((NT, B, P), dtype=torch.int64, device=dev))
     # the tensors stay referenced here until the launch has been queued
-    ptrs = (ctypes.c_void_p * 15)(*(_ptr(v) for v in (
-        s0, l0, station, sslab, dslab, rows, seg_f, seg_i, bar, table,
-        origin) + outs))
+    ptrs = (ctypes.c_void_p * 18)(*(_ptr(v) for v in (
+        s0, l0, station, sslab, dslab, None if spec is not None else packed,
+        seg_f, seg_i, bar, table, origin) + outs + (lane_off, lane_hw,
+                                                    lane_rows)))
     lib = _build.library()
     fn = lib.dp_sweep_f32 if dtype == torch.float32 else lib.dp_sweep_f64
     err = fn(dims, consts, ptrs,
@@ -246,6 +261,21 @@ def dp_sweep(cfg, s0, l0, station, sslab, dslab, packed=None, grid=None,
     _build.check(err, "dp_sweep")
     profiling.tally("dp_sweep.launches")
     profiling.tally(f"dp_sweep.width.{B}")
+    if mode != SPEC and profiling.active():
+        if lane_off is None:
+            profiling.count("dp_sweep.roads", 1)
+        else:
+            seen = torch.zeros(grid.n_roads, dtype=torch.bool, device=dev)
+            profiling.count("dp_sweep.roads", seen.index_fill_(
+                0, grid.roads, True))
     return outs
+
+
+def _lanes(v, B, name):
+    """A per-scenario int64 operand, [B] or [B, 2], contiguous."""
+    if v.shape[0] != B or v.dtype != torch.int64:
+        raise ValueError(f"dp_sweep: {name} is {v.dtype} of shape "
+                         f"{tuple(v.shape)}, expected int64 with {B} rows")
+    return v.contiguous()
 
 

@@ -2,6 +2,11 @@
 coarse search -> safe corridors -> constraint prep -> CILQR solve ->
 per-knot collision re-check -> repair ladder.
 
+A batch is on one road (its grid, lane constraints and RoadSpec given or
+built from its first scenario), or each lane on a road of its own: a
+RoadLibrary (``road_library``) and a road index per lane, whose operands
+``lane_roads`` gathers each call.
+
 ``plan_batch`` is the replan step the JAX package's pipeline benchmark
 times (the reference's per-cycle DP -> corridor -> iLQR sequence,
 trajectory_planner.cpp:28-94, for a batch of scenarios); ``plan`` is one
@@ -25,13 +30,13 @@ from .config import PlannerConfig
 from .costs import (ConstraintSet, shrink_and_normalize, tighten_constraints,
                     total_cost, trim_constraints)
 from .geometry import hypot, normalize_angle
-from .profiling import count, host, span, spanned
-from .reference_line import arc_lengths
+from .profiling import active, count, host, span, spanned
+from .reference_line import arc_lengths, centerline_rows
 from .solver import transform_goals
 from .types import (CorridorSet, Scenario, SolveResult, SolverStatus, Traj,
                     _Fields)
-from .world import (build_barrier_grid, check_optimization_collision,
-                    dyn_polys_at)
+from .world import (RoadLibrary, build_barrier_grid, build_road_library,
+                    check_optimization_collision, dyn_polys_at, lane_grid)
 
 # knots of the re-checked "executed" horizon (2.5 s at delta_t=0.1): the
 # far-tail residual violations start at knot >= ~30, so a clean [0, 25)
@@ -89,8 +94,9 @@ def traj_from_solution(xs, us, dt, wheel_base) -> Traj:
 
 def make_lane_tuple(left_barrier, right_barrier, cfg: PlannerConfig,
                     dtype=np.float64):
-    """Host-side lane constraints of one road (shared by a batch): numpy
-    arrays from the per-side barrier polylines [NB2, 2]."""
+    """Host-side lane constraints of one road: numpy arrays from the
+    per-side barrier polylines [NB2, 2]; shared by a batch on that road,
+    or one road's entry of a RoadLibrary (road_library)."""
     return corridor_mod.lane_constraints(np.asarray(left_barrier),
                                          np.asarray(right_barrier),
                                          cfg.corridor, dtype)
@@ -311,6 +317,50 @@ def road_grid(barrier_xy, cfg: PlannerConfig):
                               device=barrier_xy.device)
 
 
+@spanned("roads.build")
+def road_library(road_scns: Scenario, cfg: PlannerConfig, lanes=None,
+                 dtype=np.float64) -> RoadLibrary:
+    """The RoadLibrary of R roads, each given by a scenario on it
+    (``road_scns``, a Scenario batch [R], padded as
+    scenario.stack_scenario_arrays pads roads of unequal length): every
+    road's dilated grid table as road_grid builds it, in one batched pass
+    on the scenarios' device; its centerline row count; and its lane
+    constraints, stacked [R, S, ...] on the device, each road's
+    make_lane_tuple in ``dtype`` (numpy; float64 as make_lane_tuple's),
+    built in one pass (corridor.lane_constraints_batch) from ``lanes``,
+    the padded per-side polylines and their masks (left_xy, left_mask,
+    right_xy, right_mask) [R, NB2, ...], or if None the scenarios' own."""
+    xy = road_scns.barrier_xy
+    lib = build_road_library(xy, road_scns.barrier_mask, cfg.dp.grid_cell,
+                             half=cfg.vehicle.radius, dtype=xy.dtype)
+    if lanes is None:
+        lanes = tuple(a.cpu().numpy() for a in (
+            road_scns.left_barrier_xy, road_scns.left_barrier_mask,
+            road_scns.right_barrier_xy, road_scns.right_barrier_mask))
+    built = corridor_mod.lane_constraints_batch(*lanes, cfg.corridor, dtype)
+    stacked = tuple(torch.as_tensor(a, device=xy.device) for a in built)
+    rows = centerline_rows(road_scns.centerline.s)
+    if int(rows.min()) < 2:
+        raise ValueError("road_library: a road's centerline has fewer than "
+                         "2 rows")
+    count("roads.table_bytes", lib.dilated.numel())
+    return lib._replace(rows=rows, lanes=stacked)
+
+
+@spanned("roads")
+def lane_roads(library: RoadLibrary, roads):
+    """Each lane's road operands for a call, gathered from the library on
+    its device: (world.LaneGrid, the lane constraints [B, S, ...] as
+    corridor.plan_corridors takes them, the centerline row counts [B]).
+    roads [B] int64: lane i is on road roads[i]."""
+    if active():
+        seen = torch.zeros(library.n_roads, dtype=torch.bool,
+                           device=roads.device)
+        count("roads.count", seen.index_fill_(0, roads, True))
+    return (lane_grid(library, roads), tuple(a[roads] for a in library.lanes),
+            library.rows[roads])
+
+
 def start_states(starts, dtype):
     """(x, y, theta, v) starts [B, 4] -> solver start states [B, 6]."""
     starts = starts.to(dtype)
@@ -319,15 +369,18 @@ def start_states(starts, dtype):
 
 @spanned("plan_batch")
 def plan_batch(scns: Scenario, starts, cfg: PlannerConfig, grid=None,
-               lane=None, backend: str = "blast", spec=None) -> PlanOutput:
+               lane=None, backend: str = "blast", spec=None,
+               library: RoadLibrary | None = None, roads=None
+               ) -> PlanOutput:
     """The full replan for a batch: DP -> corridors -> constraint prep ->
     batch.solve_batch (``backend`` "blast": the sweep and cost-stack
     kernels; "mega": the megakernel; "vmap": the single-problem solver)
     -> re-check -> repair ladder.
 
-    scns: Scenario with a leading batch axis [B] (shared road), on the
-    device the replan runs on (scenario.make_scenario_batch puts it on
-    the card unless told otherwise). starts: [B, 4] (x, y, theta, v).
+    scns: Scenario with a leading batch axis [B], on the device the replan
+    runs on (scenario.make_scenario_batch puts it on the card unless told
+    otherwise): one road shared by the batch, or with ``library`` each
+    lane on a road of its own. starts: [B, 4] (x, y, theta, v).
     grid: the road's world.BarrierGrid for the DP's ``collision_mode``
     "grid" (built from the first scenario's barriers, with the vehicle
     radius as its half-size, if None then), ignored in the other modes.
@@ -337,14 +390,35 @@ def plan_batch(scns: Scenario, starts, cfg: PlannerConfig, grid=None,
     closed-form and the DP and the re-check take its finite road-barrier
     test; without it the DP reads the centerline table (and in frenet mode
     takes the station-field stand-in), and the re-check tests every
-    barrier point."""
+    barrier point.
+
+    library: a RoadLibrary (road_library) for a batch whose lanes are on
+    roads of their own, lane i on road ``roads[i]`` (int64 [B]; None: lane
+    i on road i of a library of B roads). The DP then reads each lane's
+    own grid table and centerline rows, the corridors each lane's own lane
+    constraints (``lane_roads``), and the re-check and the repair ladder
+    each lane's own barrier points; ``grid``, ``lane`` and ``spec`` are
+    not taken."""
+    rows = None
+    if library is not None:
+        if grid is not None or lane is not None or spec is not None:
+            raise ValueError("plan_batch: a RoadLibrary gives each lane its "
+                             "grid and lane constraints, and takes no "
+                             "RoadSpec")
+        if roads is None:
+            B = starts.shape[0]
+            if library.n_roads != B:
+                raise ValueError(f"plan_batch: {library.n_roads} roads for "
+                                 f"{B} lanes and no road index")
+            roads = torch.arange(B, device=starts.device)
+        grid, lane, rows = lane_roads(library, roads)
     if lane is None:
         lane = make_lane_tuple(scns.left_barrier_xy[0].cpu(),
                                scns.right_barrier_xy[0].cpu(), cfg)
     if grid is None and cfg.dp.collision_mode == "grid":
         grid = road_grid(scns.barrier_xy[0], cfg)
     dp_res = dp_mod.plan(scns, starts[:, 0], starts[:, 1], starts[:, 2], cfg,
-                         grid, spec=spec)
+                         grid, spec=spec, rows=rows)
     cors = corridor_mod.plan_corridors(scns, dp_res.traj, cfg.corridor, lane)
     cons = prep_constraints(cors, cfg)
     goals = coarse_to_states(dp_res.traj)                     # [B, N, 6]

@@ -45,7 +45,7 @@ SPANS = ("plan_batch", "mpc_step_batch",
          "dp", "dp.chunk", "dp.layers", "dp.sweep", "dp.trace_back",
          "corridors", "corridors.chunk", "corridors.prep",
          "solve", "solve.operands", "solve.guess", "solve.kernel",
-         "recheck", "repair", "repair.round")
+         "recheck", "repair", "repair.round", "roads", "roads.build")
 
 counters: collections.Counter = collections.Counter()
 

@@ -4,7 +4,11 @@ interpolation (discretized_trajectory.cpp:34-196), batched.
 
 A table (a Traj) may carry batch axes [*b, n]; a query then has shape
 [*b, *q] and looks up its own row of tables. Without batch axes on the
-table, any query shape works.
+table, any query shape works. Tables of roads of unequal length are padded
+to one n by repeating each road's last row (scenario.stack_scenario_arrays);
+the uniform-grid lookups then take each table's own row count
+(``centerline_rows``), and the nearest-knot projection never prefers a
+repeated row to the first of its copies.
 """
 
 from __future__ import annotations
@@ -82,18 +86,45 @@ def evaluate_time(traj: Traj, time):
 DP_FIELDS = ("x", "y", "theta", "kappa", "left_bound", "right_bound")
 
 
-def uniform_station_index(s_table, station):
+def centerline_rows(s_table):
+    """Each table's own row count [*b] (int64) of station tables [*b, n]
+    padded by repeating their last row: the rows below the last station,
+    and the last."""
+    return (s_table < s_table[..., -1:]).sum(dim=-1) + 1
+
+
+def _div_rows(x, n):
+    """x / n for per-table row counts n (int64, x's shape), as x / int(n)
+    computes it on x's device: a true division on the CPU, on a card a
+    multiplication by the reciprocal formed in x's type (PyTorch's division
+    by a host scalar there)."""
+    nf = n.to(x.dtype)
+    if x.device.type == "cuda":
+        return x * torch.reciprocal(nf)
+    return x / nf
+
+
+def uniform_station_index(s_table, station, rows=None):
     """Lower-bound index into a UNIFORMLY spaced station table by
     arithmetic (not searchsorted): s[i] = i*h up to accumulation noise, so
     the two can differ only within that noise of a knot, where the
     interpolant is continuous. The JAX package's arithmetic, kept as it is
-    (the DP decisions follow it)."""
+    (the DP decisions follow it). rows [*b]: each table's own row count
+    where the tables are padded (``centerline_rows``); None = every row."""
     n = s_table.shape[-1]
     s0 = s_table[..., 0]
-    h = (s_table[..., -1] - s0) / (n - 1)
+    if rows is None:
+        h = (s_table[..., -1] - s0) / (n - 1)
+        hi = n - 1
+    else:
+        last = torch.gather(s_table, -1, (rows - 1)[..., None])[..., 0]
+        h = _div_rows(last - s0, rows - 1)
+        hi = _rows(rows - 1, station)
     idx = torch.ceil((station - _rows(s0, station))
                      / _rows(h, station)).to(torch.int64)
-    return torch.clamp(idx, 1, n - 1)
+    if rows is None:
+        return torch.clamp(idx, 1, hi)
+    return torch.minimum(torch.clamp(idx, min=1), hi)
 
 
 PACK_FIELDS = ("s",) + DP_FIELDS  # row layout of pack_station_rows
@@ -121,11 +152,12 @@ def _take_rows(packed, idx):
 
 
 def evaluate_station_fields(traj: Traj, station, fields=DP_FIELDS,
-                            packed=None):
+                            packed=None, rows=None):
     """Lean EvaluateStation: interpolate only the requested fields, at the
     uniform-grid arithmetic index. ``packed``: optional
-    pack_station_rows(traj), serving all fields from two row lookups."""
-    idx = uniform_station_index(traj.s, station)
+    pack_station_rows(traj), serving all fields from two row lookups.
+    ``rows``: each table's own row count (padded tables), None = all."""
+    idx = uniform_station_index(traj.s, station, rows)
     i0 = idx - 1
     i1 = idx
     if packed is not None:

@@ -323,22 +323,53 @@ def make_scenario(seed: int, road=DEFAULT_ROAD, n_static=N_STATIC,
         dtype, device)
 
 
+# make_scenario_arrays' road-length arrays and their masks (None: the
+# centerline's fields, unmasked)
+ROAD_ARRAYS = (("barrier_xy", "barrier_mask"),
+               ("left_barrier_xy", "left_barrier_mask"),
+               ("right_barrier_xy", "right_barrier_mask"))
+
+
+def stack_scenario_arrays(rows) -> dict:
+    """make_scenario_arrays' dicts stacked over a leading batch axis.
+    Scenarios on roads of unequal length are padded to the longest: the
+    barrier points and per-side polylines by their last point, masked
+    out; the centerline by its last row repeated (a table's own rows are
+    reference_line.centerline_rows, and no lookup reads a repeated row).
+    Scenarios on one road stack as they are."""
+    def edge(a, n):
+        a = np.asarray(a)
+        return np.concatenate([a, np.repeat(a[-1:], n - len(a), axis=0)])
+
+    def stack(arrs, fill=None):
+        n = max(len(a) for a in arrs)
+        if fill is None:
+            return np.stack([edge(a, n) for a in arrs])
+        return np.stack([np.concatenate([a, np.full(n - len(a), fill)])
+                         for a in arrs])
+
+    road = {k for pair in ROAD_ARRAYS for k in pair}
+    out = {k: np.stack([r[k] for r in rows]) for k in rows[0]
+           if k != "centerline" and k not in road}
+    for pts, mask in ROAD_ARRAYS:
+        out[pts] = stack([r[pts] for r in rows])
+        out[mask] = stack([r[mask] for r in rows], False)
+    out["centerline"] = {k: stack([r["centerline"][k] for r in rows])
+                         for k in rows[0]["centerline"]}
+    return out
+
+
 def make_scenario_batch(seeds, dtype=torch.float32, device="cuda",
                         **kw) -> Scenario:
-    """Scenarios stacked over a leading batch axis (shared road), on the
-    card unless ``device`` says otherwise."""
+    """Scenarios stacked over a leading batch axis (one road shared), on
+    the card unless ``device`` says otherwise. Scenarios on roads of their
+    own: stack_scenario_arrays of their make_scenario_arrays, then
+    scenario_from_arrays."""
     cl = make_centerline(kw.pop("road", DEFAULT_ROAD))
     barriers = build_road_barriers(cl)
     rows = [make_scenario_arrays(int(s), cl=cl, barriers=barriers, **kw)
             for s in seeds]
-
-    def stack(key):
-        return np.stack([r[key] for r in rows])
-
-    arrays = {k: stack(k) for k in rows[0] if k != "centerline"}
-    arrays["centerline"] = {k: np.stack([r["centerline"][k] for r in rows])
-                            for k in rows[0]["centerline"]}
-    return scenario_from_arrays(arrays, dtype, device)
+    return scenario_from_arrays(stack_scenario_arrays(rows), dtype, device)
 
 
 @dataclasses.dataclass

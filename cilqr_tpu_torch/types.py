@@ -89,7 +89,9 @@ class Scenario(_Fields):
     per-sample corners, dyn_times [KD, TD], dyn_mask [KD], dyn_len [KD];
     barrier_xy [NB, 2] road-barrier points of both bounds sorted by x,
     barrier_mask [NB]; left/right_barrier_xy [NB2, 2] per-side polylines in
-    station order, with masks."""
+    station order, with masks. A batch on roads of unequal length is
+    padded to its longest (scenario.stack_scenario_arrays): the barrier
+    points masked out, the centerline's last row repeated."""
 
     centerline: Traj
     static_obs: torch.Tensor

@@ -9,6 +9,9 @@ Road-barrier membership has the JAX package's three modes:
 - ``grid``: the integral image of a 0.1 m occupancy grid of the barrier
   points (BarrierGrid, built once per road in numpy), four gathers a box,
   or one int8 gather from the dilated table for the grid's own half-size;
+  where every lane has a road of its own, each lane's dilated table out of
+  one device pool (RoadLibrary, built on the device in one batched pass;
+  LaneGrid, a batch's view of it);
 - ``frenet``: with the road's RoadSpec, the finite per-segment test
   (``barrier_hit_road_spec``); without it, the station-field stand-in
   (``barrier_hit_frenet``: the boundary circle or line of the segment in
@@ -63,13 +66,14 @@ class BarrierGrid(NamedTuple):
 def build_barrier_grid(barrier_xy, cell: float = 0.1, pad: float = 2.0,
                        half: float | None = None, dtype=torch.float64,
                        device="cuda") -> BarrierGrid:
-    """The road's grid, built on the host in numpy (once per road; the
-    road is shared by a scenario batch) from barrier points [NB, 2] (numpy
-    or a tensor, in their own type, as the JAX package builds from
-    ``np.asarray``), then moved to ``device`` (the card unless told
-    otherwise). With ``half``, also the dilated tables for one-gather box
-    queries of that half-size (the DP probe's vehicle radius). ``dtype``:
-    the origin's type."""
+    """The road's grid, built on the host in numpy (once per road, for a
+    batch on one road) from barrier points [NB, 2] (numpy or a tensor, in
+    their own type, as the JAX package builds from ``np.asarray``), then
+    moved to ``device`` (the card unless told otherwise). With ``half``,
+    also the dilated tables for one-gather box queries of that half-size
+    (the DP probe's vehicle radius). ``dtype``: the origin's type. A batch
+    whose lanes are on roads of their own takes build_road_library, whose
+    tables equal this build's road by road."""
     if isinstance(barrier_xy, torch.Tensor):
         barrier_xy = barrier_xy.detach().cpu().numpy()
     pts = np.asarray(barrier_xy)
@@ -108,17 +112,194 @@ def build_barrier_grid(barrier_xy, cell: float = 0.1, pad: float = 2.0,
         half=half, span=span)
 
 
+class RoadLibrary(NamedTuple):
+    """R roads' grid-mode tables in one device pool, for batches whose
+    lanes are on roads of their own (fleet replay: each vehicle on its own
+    mapped road). Road r's dilated table is BarrierGrid.dilated of
+    build_barrier_grid(road r's points, half=half), bit for bit, flattened
+    at ``offset[r]``: [2, 2, H + 2 OFF, W + 2 OFF], OFF = span + 2. The
+    integral images are not kept: a library serves box queries of its own
+    half-size only.
+
+    ``rows`` and ``lanes`` are the roads' centerline row counts and lane
+    constraints (lane_constraints' six arrays with the roads' axis leading,
+    padded to one S), set by pipeline.road_library."""
+
+    dilated: torch.Tensor        # [sum_r 4 (H_r + 2 OFF)(W_r + 2 OFF)] int8
+    offset: torch.Tensor         # [R] int64
+    hw: torch.Tensor             # [R, 2] int64: H, W
+    origin: torch.Tensor         # [R, 2]
+    cell: float
+    half: float
+    span: int
+    rows: torch.Tensor | None = None    # [R] int64
+    lanes: tuple | None = None          # six tensors [R, S, ...]
+
+    @property
+    def n_roads(self) -> int:
+        return self.offset.shape[0]
+
+
+class LaneGrid(NamedTuple):
+    """Each lane's road table out of a RoadLibrary (lane_grid): the pool,
+    and the lane's table offset, H and W, origin and road index, [B] each
+    ([B, 2] for hw and origin). Where a BarrierGrid takes one road for the
+    batch, this takes one a lane; a lookup reads the lane's own table with
+    the arithmetic of barrier_box_hit_dilated."""
+
+    dilated: torch.Tensor
+    offset: torch.Tensor
+    hw: torch.Tensor
+    origin: torch.Tensor
+    cell: float
+    half: float
+    span: int
+    roads: torch.Tensor
+    n_roads: int
+
+    def take(self, idx) -> "LaneGrid":
+        """The lanes ``idx`` (an index or a slice of the batch)."""
+        return self._replace(offset=self.offset[idx], hw=self.hw[idx],
+                             origin=self.origin[idx], roads=self.roads[idx])
+
+
+# grid cells of the batched build's temporaries held at once (roads of a
+# chunk x their padded table's cells): int32 temporaries of ~128 MB each
+LIBRARY_CELLS_PER_CHUNK = 1 << 25
+
+
+def build_road_library(barrier_xy, barrier_mask, cell: float = 0.1,
+                       pad: float = 2.0, half: float = 0.0,
+                       dtype=torch.float64) -> RoadLibrary:
+    """The dilated tables of R roads, built on the device of their barrier
+    points in one batched pass (roads in chunks of
+    LIBRARY_CELLS_PER_CHUNK padded cells): barrier points [R, NB, 2] in
+    their own type, barrier_mask [R, NB] (a shorter road's padding masked
+    out). Road by road it computes build_barrier_grid(points, cell, pad,
+    half, dtype) in its own arithmetic: the bounds (exact minima less the
+    pad), the cell counts (each cell index a correctly rounded division by
+    the cell rounded to the points' type, as numpy divides), the integral
+    image and the clipped window counts in integers. The table sizes are
+    the build's own host arithmetic on the bounds, one read of them.
+    ``dtype``: the origins' type."""
+    pts = barrier_xy
+    dev, pdt = pts.device, pts.dtype
+    R = pts.shape[0]
+    m = barrier_mask[..., None]
+    inf = torch.full((), math.inf, dtype=pdt, device=dev)
+    lo = torch.where(m, pts, inf).amin(dim=1) - pad              # [R, 2]
+    hi = torch.where(m, pts, -inf).amax(dim=1) + pad
+    lo_h = lo.cpu().numpy()
+    hi_h = hi.cpu().numpy()
+    W = [int(np.ceil((hi_h[r][0] - lo_h[r][0]) / cell)) + 1 for r in range(R)]
+    H = [int(np.ceil((hi_h[r][1] - lo_h[r][1]) / cell)) + 1 for r in range(R)]
+    span = int(np.floor(2.0 * half / cell))
+    off = span + 2
+    sizes = [4 * (h + 2 * off) * (w + 2 * off) for h, w in zip(H, W)]
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    pool = torch.zeros(int(sum(sizes)), dtype=torch.int8, device=dev)
+    c = torch.full((), cell, dtype=pdt, device=dev)
+    ij = torch.floor((pts - lo[:, None, :]) / c).to(torch.int64)  # [R, NB, 2]
+    r0 = 0
+    while r0 < R:
+        r1 = r0 + 1
+        while r1 < R and ((r1 + 1 - r0) * (max(H[r0:r1 + 1]) + 2 * off)
+                          * (max(W[r0:r1 + 1]) + 2 * off)
+                          <= LIBRARY_CELLS_PER_CHUNK):
+            r1 += 1
+        _library_chunk(pool, starts[r0:r1], H[r0:r1], W[r0:r1], ij[r0:r1],
+                       barrier_mask[r0:r1], span)
+        r0 = r1
+    i64 = dict(dtype=torch.int64, device=dev)
+    return RoadLibrary(
+        dilated=pool, offset=torch.as_tensor(starts, **i64),
+        hw=torch.as_tensor(np.stack([H, W], -1), **i64),
+        origin=lo.to(dtype), cell=cell, half=half, span=span)
+
+
+def _library_chunk(pool, starts, H, W, ij, mask, span):
+    """The dilated tables of a chunk of roads, padded to the chunk's
+    largest H and W, written into the pool at each road's offset: cell
+    counts by an integer scatter, the integral image by integer sums, the
+    window counts from it clipped to each road's own H and W (the padding
+    holds no point, so inside a road's own range the padded integral is
+    the road's)."""
+    dev = pool.device
+    n, Hm, Wm = len(H), max(H), max(W)
+    off = span + 2
+    i64 = dict(dtype=torch.int64, device=dev)
+    Hr = torch.as_tensor(H, **i64)[:, None]
+    Wr = torch.as_tensor(W, **i64)[:, None]
+    flat = ((torch.arange(n, **i64)[:, None] * Hm + ij[..., 1]) * Wm
+            + ij[..., 0])[mask]
+    grid = torch.zeros(n * Hm * Wm, dtype=torch.int32, device=dev)
+    grid.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    integral = torch.zeros((n, Hm + 1, Wm + 1), dtype=torch.int32,
+                           device=dev)
+    integral[:, 1:, 1:] = grid.reshape(n, Hm, Wm).cumsum(
+        1, dtype=torch.int32).cumsum(2, dtype=torch.int32)
+    ai = torch.arange(-off, Hm + off, **i64)[None]               # [1, Hpm]
+    aj = torch.arange(-off, Wm + off, **i64)[None]
+    zero = torch.zeros((), **i64)
+
+    def clip(v, top):
+        return torch.minimum(torch.maximum(v, zero), top)
+
+    def rows_at(i):                        # integral rows i [n, Hpm]
+        return torch.gather(integral, 1, i[..., None].expand(
+            n, i.shape[1], Wm + 1))
+
+    def cols_at(t, j):                     # t [n, Hpm, Wm+1], j [n, Wpm]
+        return torch.gather(t, 2, j[:, None, :].expand(
+            n, t.shape[1], j.shape[1]))
+
+    i0 = clip(ai, Hr)
+    j0 = clip(aj, Wr)
+    tabs = []
+    for a in (0, 1):
+        i1 = clip(ai + span + a + 1, Hr)
+        top, bot = rows_at(i1), rows_at(i0)
+        for b in (0, 1):
+            j1 = clip(aj + span + b + 1, Wr)
+            cnt = (cols_at(top, j1) - cols_at(bot, j1) - cols_at(top, j0)
+                   + cols_at(bot, j0))
+            tabs.append((cnt > 0).to(torch.int8))
+    tab = torch.stack(tabs, 1)                           # [n, 4, Hpm, Wpm]
+    for k in range(n):
+        hp, wp = H[k] + 2 * off, W[k] + 2 * off
+        pool[int(starts[k]):int(starts[k]) + 4 * hp * wp] = \
+            tab[k, :, :hp, :wp].reshape(-1)
+
+
+def lane_grid(library: RoadLibrary, roads) -> LaneGrid:
+    """The LaneGrid of a batch whose lane i is on road ``roads[i]`` of the
+    library: its offsets, sizes and origins gathered, the pool shared."""
+    return LaneGrid(dilated=library.dilated, offset=library.offset[roads],
+                    hw=library.hw[roads], origin=library.origin[roads],
+                    cell=library.cell, half=library.half, span=library.span,
+                    roads=roads, n_roads=library.n_roads)
+
+
 def _cell_index(grid: BarrierGrid, v, axis):
     """floor((v - origin[axis]) / cell) as int64, computed in the
     promotion of the queries' type and the origin's. The cell size is a
     0-d tensor on the queries' device: PyTorch on a card multiplies by the
     reciprocal of a divisor given as a host scalar, which is not a
     correctly rounded division, and a probe on a cell boundary would read
-    its neighbour."""
+    its neighbour. A LaneGrid's origins are the lanes' own (v [B, ...])."""
     wd = torch.promote_types(v.dtype, grid.origin.dtype)
-    o = grid.origin[axis].to(wd)
+    if isinstance(grid, LaneGrid):
+        o = _per_lane(grid.origin[:, axis], v).to(wd)
+    else:
+        o = grid.origin[axis].to(wd)
     c = torch.full((), grid.cell, dtype=wd, device=v.device)
     return torch.floor((v.to(wd) - o) / c).to(torch.int64)
+
+
+def _per_lane(x, like):
+    """x [B] with trailing singleton axes to broadcast against like
+    [B, ...]."""
+    return x.reshape(x.shape + (1,) * (like.dim() - 1))
 
 
 def barrier_points_in_box_grid(grid: BarrierGrid, minx, miny, maxx, maxy):
@@ -142,7 +323,10 @@ def barrier_box_hit_dilated(grid: BarrierGrid, minx, miny, maxx, maxy):
     """One int8 gather a box, bit-exact to (barrier_points_in_box_grid(...)
     > 0) for boxes of the grid's own half-size (BarrierGrid.dilated).
     Anchors clipped into the padded range read empty windows, so a box off
-    the grid reports no hit, as the clamped integral path does."""
+    the grid reports no hit, as the clamped integral path does. A LaneGrid
+    takes each lane's own table (boxes [B, ...])."""
+    if isinstance(grid, LaneGrid):
+        return _lane_box_hit_dilated(grid, minx, miny, maxx, maxy)
     H = grid.integral.shape[0] - 1
     W = grid.integral.shape[1] - 1
     span = grid.span
@@ -157,6 +341,26 @@ def barrier_box_hit_dilated(grid: BarrierGrid, minx, miny, maxx, maxy):
     jxc = torch.clamp(jx + off, 0, Wp - 1)
     flat = ((a * 2 + b) * Hp + iyc) * Wp + jxc
     return grid.dilated.reshape(-1)[flat] > 0
+
+
+def _lane_box_hit_dilated(grid: LaneGrid, minx, miny, maxx, maxy):
+    """barrier_box_hit_dilated with each lane's own H, W and table offset
+    (the same integer arithmetic, the clamps' bounds per lane)."""
+    span = grid.span
+    off = span + 2
+    H = _per_lane(grid.hw[:, 0], minx)
+    W = _per_lane(grid.hw[:, 1], minx)
+    Hp = H + 2 * off
+    Wp = W + 2 * off
+    iy = _cell_index(grid, miny, 1)
+    jx = _cell_index(grid, minx, 0)
+    a = torch.clamp(_cell_index(grid, maxy, 1) - iy - span, 0, 1)
+    b = torch.clamp(_cell_index(grid, maxx, 0) - jx - span, 0, 1)
+    iyc = torch.minimum(torch.clamp(iy + off, min=0), Hp - 1)
+    jxc = torch.minimum(torch.clamp(jx + off, min=0), Wp - 1)
+    flat = (_per_lane(grid.offset, minx)
+            + ((a * 2 + b) * Hp + iyc) * Wp + jxc)
+    return grid.dilated[flat] > 0
 
 
 def barrier_points_in_box_exact(barrier_xy, barrier_mask, minx, miny, maxx,

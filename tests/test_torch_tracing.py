@@ -259,6 +259,30 @@ def test_host_syncs_count_each_site(site, syncs):
     assert TPr.collect().counters["host_syncs"] == syncs
 
 
+def test_road_library_spans_and_counters():
+    """A road library's build is one ``roads.build`` span and counts its
+    resident table bytes; a replan with it opens one ``roads`` span under
+    the call (each lane's road operands) and counts the call's roads."""
+    other = (33.0, (-90.0, 11.0), 10.0, (180.0, 5.5), 36.0, (-180.0, 12.5),
+             50.0)
+    rows = [TS.make_scenario_arrays(s, road=r)
+            for s, r in ((0, TS.DEFAULT_ROAD), (1, other))]
+    scn = TS.scenario_from_arrays(TS.stack_scenario_arrays(rows), F64, "cpu")
+    grid_cfg = dataclasses.replace(SMALL, dp=dataclasses.replace(
+        SMALL.dp, collision_mode="grid"))
+    starts = torch.tensor([0.0, 0.0, 0.0, 10.0], dtype=F64).repeat(2, 1)
+    with TPr.tracing():
+        lib = TP.road_library(scn, grid_cfg)
+        TP.plan_batch(scn, starts, grid_cfg, library=lib)
+        tr = TPr.collect()
+    assert tr.spans["roads.build"].count == 1
+    assert tr.spans["roads.build"].parents == {None: 1}
+    assert tr.spans["roads"].parents == {"plan_batch": 1}
+    assert tr.counters["roads.table_bytes"] == lib.dilated.numel() > 0
+    assert tr.counters["roads.count"] == 2
+    assert {"roads", "roads.build"} <= set(TPr.SPANS)
+
+
 def test_counters_take_host_ints_and_device_sums():
     with TPr.tracing():
         TPr.count("x.ints", 2)
